@@ -1,0 +1,7 @@
+// Error text for the codes the kernels' C entry points return.
+
+#include <cuda_runtime.h>
+
+extern "C" const char* kernels_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

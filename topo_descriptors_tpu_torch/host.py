@@ -1,0 +1,29 @@
+"""The host layer the port shares with the JAX package, in one place.
+
+Grid metadata, NetCDF I/O, synthetic DEMs and the geometry tables (disk
+kernels, Sx rays) are numpy code in ``topo_descriptors_tpu``'s jax-free
+modules; the port computes on them as they are. Importing this module
+loads neither ``jax`` nor ``h5py``.
+"""
+
+from topo_descriptors_tpu.grid import Raster, RasterGrid, check_dem, fill_na
+from topo_descriptors_tpu.io.netcdf import get_dem_netcdf, read_raster, to_netcdf, write_raster
+from topo_descriptors_tpu.io.synthetic import basodino_like_dem, synthetic_dem
+from topo_descriptors_tpu.kernels.disk import circular_kernel
+from topo_descriptors_tpu.kernels.sx_geometry import sx_dedupe, sx_offsets
+
+__all__ = [
+    "Raster",
+    "RasterGrid",
+    "check_dem",
+    "fill_na",
+    "get_dem_netcdf",
+    "read_raster",
+    "to_netcdf",
+    "write_raster",
+    "basodino_like_dem",
+    "synthetic_dem",
+    "circular_kernel",
+    "sx_dedupe",
+    "sx_offsets",
+]

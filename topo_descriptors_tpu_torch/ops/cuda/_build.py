@@ -1,0 +1,127 @@
+"""Build the port's CUDA kernels at first use and bind them through ctypes.
+
+Every ``csrc/*.cu`` file of the package is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface. The library
+is named by a hash of its sources and flags, so an edit rebuilds it, and it
+lives in ``build/kernels/`` beside the package (listed in ``.gitignore``;
+``TOPO_TORCH_BUILD_DIR`` moves it). There is deliberately no
+``--use_fast_math``: both kernels rely on IEEE NaN/inf behaviour in
+``fmaxf``, ``0 * inf`` and ``atanf``.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = _PACKAGE / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, p, out, table, n_groups, n_fields, h, w, ly, lx, hp, wq, h_out,
+    # w_out, stream
+    "disk_sat_forward": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
+    # dem, offsets, group_ptr, inv, n_groups, out, h, w, border, height,
+    # zero_border, stream
+    "sx_block_forward": (_P, _P, _P, _P, _I, _P, _I, _I, _I,
+                         ctypes.c_float, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build this process ran, if any
+
+
+def build_dir() -> Path:
+    return Path(
+        os.environ.get("TOPO_TORCH_BUILD_DIR", _PACKAGE.parent / "build" / "kernels")
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME: the CUDA kernels of "
+        "topo_descriptors_tpu_torch cannot be built"
+    )
+
+
+def _sources():
+    sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return sources
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return build_dir() / f"libtopo_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _compile(target: Path) -> None:
+    global build_seconds
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    build_seconds = time.perf_counter() - start
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.kernels_error_string.argtypes = (ctypes.c_int,)
+            lib.kernels_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise when a kernel's C entry point reported a CUDA error."""
+    if err:
+        text = library().kernels_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({text})")

@@ -1,0 +1,304 @@
+"""Batch drivers on PyTorch: the single-device subset of
+``topo_descriptors_tpu.pipeline``.
+
+Each driver validates the DEM, converts scales to odd pixel counts, runs
+the descriptor ops on ``device`` (default ``"cuda"``), reassigns the
+original NaNs, optionally crops, and writes one NetCDF per descriptor
+through the shared ``io.netcdf.to_netcdf`` with the reference's naming.
+Signatures match the JAX drivers plus ``device=``; the multi-device
+``sharded`` backends are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from topo_descriptors_tpu import geo
+from topo_descriptors_tpu.config import CFG
+from topo_descriptors_tpu.grid import Raster, check_dem
+from topo_descriptors_tpu.io.netcdf import to_netcdf
+from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets
+from topo_descriptors_tpu.utils.timing import timer
+from topo_descriptors_tpu_torch import ops
+from topo_descriptors_tpu_torch.device import as_field
+
+logger = logging.getLogger(__name__)
+
+
+def _as_list(value, length=None):
+    if not hasattr(value, "__iter__"):
+        value = [value] if length is None else [value] * length
+    return list(value)
+
+
+def _apply_nans(array: np.ndarray, ind_nans) -> np.ndarray:
+    array = np.array(array)
+    if ind_nans is not None and len(ind_nans) and len(ind_nans[0]):
+        array[ind_nans] = np.nan
+    return array
+
+
+def _existing(name: str, outdir) -> Optional[Path]:
+    """Per-(descriptor, scale) outputs are independent files, so a rerun can
+    skip the ones already on disk."""
+    path = Path(outdir) / f"topo_{str.upper(name)}.nc"
+    return path if path.exists() else None
+
+
+def _compute_backend(dem_val, backend, device) -> torch.Tensor:
+    """The DEM as a tensor on ``device``.
+
+    Only the single-device backend (``None``) is ported; the JAX package's
+    ShardedOps / TiledRunner backends are ROADMAP items A13 / A12.
+    """
+    if backend is not None:
+        raise NotImplementedError(
+            "sharded/tiled backends are not ported to PyTorch yet "
+            "(ROADMAP A13); pass sharded=None"
+        )
+    return as_field(np.asarray(dem_val, dtype=CFG.compute_dtype), device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+# --- naming (reference topo.py:184-188, 310-314, 956-960) --------------------
+
+
+def _smth_suffix(smth_factor):
+    return f"_SMTHFACT{smth_factor:.3g}" if smth_factor else ""
+
+
+def _tpi_name(scale, smth_factor):
+    return f"TPI_{scale}M{_smth_suffix(smth_factor)}"
+
+
+def _std_name(scale, smth_factor):
+    return f"STD_{scale}M{_smth_suffix(smth_factor)}"
+
+
+def _sx_name(radius, azimuth):
+    return f"SX_RADIUS{int(radius)}_AZIMUTH{int(azimuth)}"
+
+
+# --- drivers -----------------------------------------------------------------
+
+
+def _compute_disk_family(
+    dem_ds: Raster,
+    scales,
+    smth_factors,
+    kinds: Sequence[str],
+    ind_nans,
+    crop,
+    outdir,
+    sharded,
+    skip_existing,
+    device,
+):
+    """Shared driver for the disk-kernel descriptors (TPI, rolling STD).
+
+    Scales that share one pre-smooth sigma run as one
+    :func:`ops.disk_descriptors` batch when there are several of them or
+    both kinds are asked for; a lone (scale, kind) runs :func:`ops.tpi` or
+    :func:`ops.std`. Output files keep the reference's per-(descriptor,
+    scale) contract.
+    """
+    check_dem(dem_ds)
+    scales = _as_list(scales)
+    smth_factors = _as_list(smth_factors, len(scales))
+    scales_pxl, _ = geo.scale_to_pixel(scales, dem_ds)
+    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
+    namers = {"tpi": _tpi_name, "std": _std_name}
+
+    written: Dict[tuple, Path] = {}
+    pending: Dict[int, List[str]] = {}
+    for idx in range(len(scales)):
+        for kind in kinds:
+            name = namers[kind](scales[idx], smth_factors[idx])
+            if skip_existing and (path := _existing(name, outdir)):
+                logger.info(f"skipping existing {path}")
+                written[(kind, idx)] = path
+            else:
+                pending.setdefault(idx, []).append(kind)
+
+    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+
+    def write(kind, idx, array):
+        array = _apply_nans(array, ind_nans)
+        name = namers[kind](scales[idx], smth_factors[idx])
+        written[(kind, idx)] = to_netcdf(array, dem_ds, name, crop, outdir, "m")
+
+    # group by (sigma, kind set): members of a group share one fused batch
+    groups: Dict[tuple, List[int]] = {}
+    for idx, kk in pending.items():
+        groups.setdefault((sigmas[idx], tuple(kk)), []).append(idx)
+
+    for (sigma, kk), idxs in groups.items():
+        if len(idxs) > 1 or len(kk) > 1:
+            sizes = tuple(int(scales_pxl[i]) for i in idxs)
+            logger.info(
+                f"Computing scales {[scales[i] for i in idxs]} meters fused "
+                f"({'+'.join(kk)}, sigma {sigma}) ..."
+            )
+            with timer(f"{'+'.join(kk)} fused x{len(idxs)} scales"):
+                batch = ops.disk_descriptors(
+                    dem_dev, sizes, sigma, compute_tpi="tpi" in kk,
+                    compute_std="std" in kk, device=dem_dev.device,
+                )
+                batch = {k: _to_host(v) for k, v in batch.items()}
+            for j, idx in enumerate(idxs):
+                for kind in kk:
+                    write(kind, idx, batch[kind][j])
+            continue
+        for idx in idxs:
+            logger.info(
+                f"Computing scale {scales[idx]} meters with smoothing factor"
+                f" {smth_factors[idx]} ..."
+            )
+            for kind in kk:
+                op = ops.tpi if kind == "tpi" else ops.std
+                with timer(f"{kind} scale {scales[idx]}m"):
+                    array = _to_host(
+                        op(dem_dev, int(scales_pxl[idx]), sigmas[idx],
+                           device=dem_dev.device)
+                    )
+                write(kind, idx, array)
+
+    return [
+        written[(kind, idx)] for kind in kinds for idx in range(len(scales))
+    ]
+
+
+def compute_tpi(
+    dem_ds: Raster,
+    scales,
+    smth_factors=None,
+    ind_nans=None,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """TPI at each scale (reference compute_tpi, topo.py:88-141)."""
+    logger.info(f"***Starting TPI computation for scales {scales} meters***")
+    return _compute_disk_family(
+        dem_ds, scales, smth_factors, ("tpi",), ind_nans, crop, outdir,
+        sharded, skip_existing, device,
+    )
+
+
+def compute_std(
+    dem_ds: Raster,
+    scales,
+    smth_factors=None,
+    ind_nans=None,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """Rolling STD at each scale (reference compute_std, topo.py:216-269)."""
+    logger.info(f"***Starting STD computation for scales {scales} meters***")
+    return _compute_disk_family(
+        dem_ds, scales, smth_factors, ("std",), ind_nans, crop, outdir,
+        sharded, skip_existing, device,
+    )
+
+
+def compute_tpi_std(
+    dem_ds: Raster,
+    scales,
+    smth_factors=None,
+    ind_nans=None,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """TPI and rolling STD for every scale on shared moment fields: the same
+    files as :func:`compute_tpi` then :func:`compute_std`."""
+    logger.info(
+        f"***Starting fused TPI+STD computation for scales {scales} meters***"
+    )
+    return _compute_disk_family(
+        dem_ds, scales, smth_factors, ("tpi", "std"), ind_nans, crop, outdir,
+        sharded, skip_existing, device,
+    )
+
+
+def sx(
+    dem_ds: Raster,
+    azimuth: float,
+    radius: float,
+    height: float = 10.0,
+    azimuth_arc: float = 10.0,
+    azimuth_steps: int = 15,
+    radius_min: float = 0.0,
+    sharded=None,
+    device="cuda",
+) -> np.ndarray:
+    """Sx horizon scan for one azimuth (reference sx, topo.py:776-858).
+
+    Takes the full Raster: the geometry needs the grid's metric resolution.
+    """
+    if not isinstance(dem_ds, Raster):
+        raise TypeError("Argument 'dem_ds' must be a Raster.")
+    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    _, res_meters = geo.scale_to_pixel(radius, dem_ds)
+    dx = float(res_meters["x"].mean())
+    dy = float(res_meters["y"].mean())
+    offsets, distances, border = sx_offsets(
+        azimuth, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min
+    )
+    with timer(f"sx az {azimuth} r {radius}m"):
+        return _to_host(
+            ops.sx(dem_dev, offsets, distances, border, height,
+                   device=dem_dev.device)
+        )
+
+
+def compute_sx(
+    dem_ds: Raster,
+    azimuth: float,
+    radius: float,
+    height: float = 10.0,
+    azimuth_arc: float = 10.0,
+    azimuth_steps: int = 15,
+    radius_min: float = 0.0,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """Sx driver (reference compute_sx, topo.py:715-772)."""
+    check_dem(dem_ds)
+    name = _sx_name(radius, azimuth)
+    if skip_existing and (path := _existing(name, outdir)):
+        logger.info(f"skipping existing {path}")
+        return [path]
+    logger.info(
+        f"***Starting Sx computation for azimuth {azimuth} and radius {radius}***"
+    )
+    array = sx(
+        dem_ds,
+        azimuth,
+        radius,
+        height=height,
+        azimuth_arc=azimuth_arc,
+        azimuth_steps=azimuth_steps,
+        radius_min=radius_min,
+        sharded=sharded,
+        device=device,
+    )
+    return [to_netcdf(array, dem_ds, name, crop, outdir, "degree")]

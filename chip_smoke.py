@@ -9,11 +9,15 @@ Phases, each printing its lines:
 1. check the card (name, and power limit from nvidia-smi);
 2. build the hand-written kernels from ``topo_descriptors_tpu_torch/csrc``;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   Basodino-sized grid (900 x 1440) and at 8192 x 8192;
+   Basodino-sized grid (900 x 1440) and at 8192 x 8192; the Sx sweep and
+   fan kernels also against per-azimuth ``sx_block``, bit for bit;
 4. run the port's drivers on the card (TPI fused and smoothed, TPI+STD,
-   Sx at 500 m and 2000 m), check that both kernels were launched, and
-   compare every output with the same drivers run on the plain twins;
-5. time each kernel against its twin (CUDA events, median of 20);
+   Sx at 500 m and 2000 m, the 36-azimuth Sx sweep at 2000 m and 200 m)
+   and ``ops.sx_sweep`` with the sweep kernel that ``auto`` does not pick,
+   check that every kernel was launched, and compare every output with
+   the same calls run on the plain twins;
+5. time each kernel against its twin (CUDA events, median of 20; a twin
+   that takes over a second per call, median of 3);
 6. print the kernels' JSON line, then the result line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -38,6 +42,7 @@ import torch
 EPS32 = float(np.finfo(np.float32).eps)
 SX_ATOL = 2e-5  # degrees: kernel and twin share the ratios; atan may differ by ~1 ulp of 90
 TIMING_REPS = 20
+SWEEP_AZIMUTHS = tuple(range(0, 360, 10))  # BASELINE.json configs[3]
 
 
 def check(ok: bool, msg: str) -> None:
@@ -156,6 +161,59 @@ def check_sx(name, dem, o, d, b, grid):
     return err
 
 
+def sweep_cases(grid):
+    """(name, offsets, distances, border) of the deduplicated fans checked
+    on ``grid``: the 36-azimuth sweep at both radii of BASELINE.json
+    configs[3], a ragged radius_min fan and the distance-0 fan at 900x1440;
+    the 36-azimuth sweep at 500 m at 8192x8192."""
+    from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
+
+    if grid == "8192x8192":
+        cases = [("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0)]
+    else:
+        cases = [("36az_r200", SWEEP_AZIMUTHS, 200.0, 0.0),
+                 ("36az_r2000", SWEEP_AZIMUTHS, 2000.0, 0.0),
+                 ("r300_radius_min100", (10, 200, 355), 300.0, 100.0),
+                 ("r250_distance0", (225, 45), 250.0, 0.0)]
+    for name, azimuths, radius, rmin in cases:
+        o, d, b = sx_sweep_offsets(azimuths, radius, 30.0, 30.0, radius_min=rmin)
+        o, d = sx_sweep_dedupe(o, d)
+        yield name, o, d, b
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_sweep(name, dem, o, d, b, grid):
+    """Both fan kernels against the twin, plane by plane (the (36, 8192,
+    8192) stacks are 9.7 GB each), and bit for bit against sx_block on the
+    azimuth's table: the three kernels share the per-pixel code and the
+    1/distance groups."""
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+
+    outs = {"sx_sweep": sx_sweep.sx_sweep(dem, o, d, b, 10.0),
+            "sx_fan": sx_sweep.sx_fan(dem, o, d, b, 10.0)}
+    torch.cuda.synchronize()
+    errs = dict.fromkeys(outs, 0.0)
+    for a in range(len(o)):
+        ref = sx_sweep.sx_sweep_plain(dem, o[a : a + 1], d[a : a + 1], b, 10.0)[0]
+        one = sx_block.sx_block(dem, o[a], d[a], b, 10.0)  # pad rows: NaN, dropped
+        for kernel, out in outs.items():
+            check(torch.equal(torch.isnan(out[a]), torch.isnan(ref)),
+                  f"{kernel} {name} {grid} azimuth {a}: NaN positions differ")
+            errs[kernel] = max(errs[kernel], float(torch.nan_to_num(out[a] - ref).abs().max()))
+            check(same_bits(out[a], one),
+                  f"{kernel} {name} {grid} azimuth {a}: not bit-equal to sx_block")
+    n_rays = int((~np.isnan(d)).sum())
+    print(f"[parity] sx_sweep/sx_fan {name} {grid} A={len(o)} rays={n_rays} border={b}: "
+          f"max|kernel-twin| {errs['sx_sweep']:.6g} / {errs['sx_fan']:.6g} deg "
+          f"(tol {SX_ATOL}), NaN positions equal, every plane bit-equal to sx_block")
+    for kernel, err in errs.items():
+        check(err <= SX_ATOL, f"{kernel} {name} {grid}: {err} > {SX_ATOL}")
+    return errs
+
+
 # --- phase 4: the drivers ----------------------------------------------------
 
 
@@ -163,15 +221,16 @@ def check_sx(name, dem, o, d, b, grid):
 def plain_twins():
     """Route the ops through the kernels' plain twins, for the reference
     run only: the package itself never sends a CUDA tensor to a twin."""
-    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
 
-    saved = disk_sat.disk_conv_sat, sx_block.sx_block
+    saved = disk_sat.disk_conv_sat, sx_block.sx_block, sx_sweep.sx_sweep, sx_sweep.sx_fan
     disk_sat.disk_conv_sat = disk_sat.disk_conv_sat_plain
     sx_block.sx_block = sx_block.sx_block_plain
+    sx_sweep.sx_sweep = sx_sweep.sx_fan = sx_sweep.sx_sweep_plain
     try:
         yield
     finally:
-        disk_sat.disk_conv_sat, sx_block.sx_block = saved
+        disk_sat.disk_conv_sat, sx_block.sx_block, sx_sweep.sx_sweep, sx_sweep.sx_fan = saved
 
 
 @contextlib.contextmanager
@@ -208,6 +267,8 @@ def run_drivers(dem, ind_nans, use_h5py):
         (pipeline.compute_tpi_std, dict(scales=[500, 2000], ind_nans=ind_nans)),
         (pipeline.compute_sx, dict(azimuth=0, radius=500)),
         (pipeline.compute_sx, dict(azimuth=0, radius=2000)),
+        (pipeline.compute_sx_sweep, dict(azimuths=SWEEP_AZIMUTHS, radius=2000)),
+        (pipeline.compute_sx_sweep, dict(azimuths=SWEEP_AZIMUTHS, radius=200)),
     ]
     store = {}
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
@@ -228,21 +289,67 @@ def compare_outputs(main, ref, shape):
     """TPI: 1e-2 m (prefix sums of 1440-column rows, ulp <= 0.25, 2 x 68
     reads, over the 3408-tap sum). STD, compared as variance: 25 m^2 (the
     three moment convolutions each carry such errors, and the centring
-    constant c ~ 1800 m multiplies the two linear ones). Sx: 2e-5 deg."""
-    check(sorted(main) == sorted(ref) and len(main) == 9, f"outputs {sorted(main)}")
+    constant c ~ 1800 m multiplies the two linear ones). Sx: 2e-5 deg.
+    One line per (call, descriptor) with the largest error of its outputs."""
+    n_out = 9 + 2 * len(SWEEP_AZIMUTHS)
+    check(sorted(main) == sorted(ref) and len(main) == n_out, f"outputs {sorted(main)}")
+    worst = {}
     for name in sorted(main):
         a, b = main[name].data, ref[name].data
         check(a.shape == shape and a.dtype == np.float32, f"{name}: {a.shape} {a.dtype}")
         check(np.array_equal(np.isnan(a), np.isnan(b)), f"{name}: NaN positions differ")
-        kind = name.split("/")[1].split("_")[0]
+        call, var = name.split("/")
+        kind = var.split("_")[0]
         if kind == "STD":
             a, b, tol, unit = a.astype(np.float64) ** 2, b.astype(np.float64) ** 2, 25.0, "m^2"
         else:
             tol, unit = (1e-2, "m") if kind == "TPI" else (SX_ATOL, "deg")
         err = float(np.nanmax(np.abs(a - b)))
         check(np.isfinite(np.nanmax(np.abs(a))), f"{name}: no finite values")
-        print(f"[drivers] {name}: {a.shape}, max|cuda-twins| {err:.6g} {unit} (tol {tol})")
         check(err <= tol, f"{name}: {err} > {tol}")
+        key = (call, var if kind != "SX" else "SX")
+        n, e, _, _ = worst.get(key, (0, 0.0, tol, unit))
+        worst[key] = (n + 1, max(e, err), tol, unit)
+    for (call, var), (n, err, tol, unit) in sorted(worst.items()):
+        print(f"[drivers] {call}/{var} ({n} output{'s' * (n > 1)}, {shape}): "
+              f"max|cuda-twins| {err:.6g} {unit} (tol {tol})")
+
+
+def other_sweep_call(dem_ds, dem):
+    """``ops.sx_sweep`` on the 36-azimuth 200 m fan of ``dem_ds`` (``dem``
+    on the card) with the fan kernel that ``auto`` does not pick, so the
+    driven run reaches both. The geometry is the driver's: the grid's
+    signed metric resolutions."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import sx_sweep_offsets
+    from topo_descriptors_tpu_torch.ops.sx import _sweep_auto_method
+
+    method = {"pallas_fan": "pallas_sweep", "pallas_sweep": "pallas_fan"}[_sweep_auto_method(dem)]
+    res = dem_ds.grid.resolution_meters()
+    o, d, b = sx_sweep_offsets(SWEEP_AZIMUTHS, 200.0, float(res["x"].mean()),
+                               float(res["y"].mean()))
+    return method, ops.sx_sweep(dem, o, d, b, method=method, device=dem.device)
+
+
+def check_sweep_drivers(dem_ds, main_out, other_out):
+    """Plane a of each driver sweep equals compute_sx's Sx at azimuth a on
+    the card, and the other fan kernel's planes equal the driver's, bit for
+    bit (the same per-pixel code and groups)."""
+    from topo_descriptors_tpu_torch import pipeline
+
+    for call, radius in (("call5", 2000), ("call6", 200)):
+        for az in (0, 130, 270):
+            plane = main_out[f"{call}/SX_RADIUS{radius}_AZIMUTH{az}"].data
+            single = pipeline.sx(dem_ds, azimuth=az, radius=radius)
+            check(np.array_equal(plane.view(np.int32), single.view(np.int32)),
+                  f"compute_sx_sweep r={radius} azimuth {az} differs from compute_sx")
+    other = other_out.cpu().numpy()
+    for a, az in enumerate(SWEEP_AZIMUTHS):
+        plane = main_out[f"call6/SX_RADIUS200_AZIMUTH{az}"].data
+        check(np.array_equal(plane.view(np.int32), other[a].view(np.int32)),
+              f"the two fan kernels differ at azimuth {az}")
+    print("[drivers] compute_sx_sweep planes bit-equal to compute_sx at azimuths 0, 130, 270 "
+          "(r = 2000 m and 200 m) and to the other fan kernel at all 36 azimuths (r = 200 m)")
 
 
 def check_against_recipes(dem_np):
@@ -277,12 +384,12 @@ def check_against_recipes(dem_np):
 # --- phase 5: timing -----------------------------------------------------------
 
 
-def median_ms(fn) -> float:
-    for _ in range(3):
+def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -328,61 +435,132 @@ def time_kernels(grids, smi_line):
     return times
 
 
+def slow_median_ms(fn):
+    """(median ms, repetitions): :func:`median_ms`, but a function whose
+    first call takes over a second gets 3 repetitions after it."""
+    first = median_ms(fn, reps=1, warmup=0)
+    if first > 1000.0:
+        return median_ms(fn, reps=3, warmup=0), 3
+    return median_ms(fn, warmup=2), TIMING_REPS
+
+
+def time_sweeps(grids, smi_line):
+    """The 36-azimuth fan at 900x1440 (r = 200 m and 2000 m) and 8192x8192
+    (r = 500 m): both fan kernels, the per-azimuth sx_block loop (the
+    'pallas' route) and the twin, on the same deduplicated tables."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+
+    times = {}
+    for grid, radius in (("900x1440", 200.0), ("900x1440", 2000.0), ("8192x8192", 500.0)):
+        dem = grids[grid]
+        o, d, b = sx_sweep_offsets(SWEEP_AZIMUTHS, radius, 30.0, 30.0)
+        o, d = sx_sweep_dedupe(o, d)
+        mpix_az = dem.numel() * len(o) / 1e6
+        case = f"{grid} r{int(radius)}"
+        rows = {
+            "sx_sweep": lambda: sx_sweep.sx_sweep(dem, o, d, b, 10.0),
+            "sx_fan": lambda: sx_sweep.sx_fan(dem, o, d, b, 10.0),
+            "pallas loop": lambda: torch.stack(
+                [sx_block.sx_block(dem, o[a], d[a], b, 10.0) for a in range(len(o))]),
+            "twin": lambda: sx_sweep.sx_sweep_plain(dem, o, d, b, 10.0),
+            "ops.sx_sweep auto": lambda: ops.sx_sweep(dem, o, d, b, device=dem.device),
+        }
+        for label, fn in rows.items():
+            ms, reps = slow_median_ms(fn)
+            times[(label, case)] = ms
+            print(f"[time] Sx sweep 36 az {case} (rays {int((~np.isnan(d)).sum())}) {label}: "
+                  f"{ms:.4f} ms ({mpix_az / ms * 1e3:.1f} Mpixel*azimuth/s, median of {reps}) "
+                  f"on {smi_line}")
+    return times
+
+
 def main() -> int:
     name, smi_line = card()
     from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na, synthetic_dem
-    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
+    from topo_descriptors_tpu_torch.ops.sx import _sweep_auto_method
 
     build()
 
-    start = time.perf_counter()
+    t0 = start = time.perf_counter()
     baso = basodino_like_dem(projected=True)
     grids = {
         "900x1440": torch.from_numpy(baso.data).cuda(),
         "8192x8192": torch.from_numpy(synthetic_dem(8192, 8192)).cuda(),
     }
     print(f"[data] grids made in {time.perf_counter() - start:.2f} s")
-    errs = {"disk_sat": 0.0, "sx_block": 0.0}
+    errs = {"disk_sat": 0.0, "sx_block": 0.0, "sx_sweep": 0.0, "sx_fan": 0.0}
     for grid, dem in grids.items():
         for case in disk_cases(dem):
             errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
         for case in sx_cases():
             errs["sx_block"] = max(errs["sx_block"], check_sx(case[0], dem, *case[1:], grid))
+        for case in sweep_cases(grid):
+            for kernel, err in check_sweep(case[0], dem, *case[1:], grid).items():
+                errs[kernel] = max(errs[kernel], err)
+    print(f"[parity] done at {time.perf_counter() - t0:.1f} s")
 
     data = np.array(baso.data)
     data[100:104, 200:230] = np.nan  # holes: filled for compute, NaN again in the outputs
     ind_nans, dem_ds = fill_na(baso.with_data(data))
     use_h5py = importlib.util.find_spec("h5py") is not None
     print(f"[drivers] writing {'NetCDF through h5py, read back' if use_h5py else 'to memory (no h5py here)'}")
+    dem_filled = torch.from_numpy(np.ascontiguousarray(dem_ds.data, np.float32)).cuda()
+    auto_kernel = {"pallas_fan": "sx_fan", "pallas_sweep": "sx_sweep"}[
+        _sweep_auto_method(dem_filled)]
     disk_sat.LAUNCHES = 0
     sx_block.LAUNCHES = 0
+    sx_sweep.LAUNCHES.update(sx_sweep=0, sx_fan=0)
     start = time.perf_counter()
     main_out = run_drivers(dem_ds, ind_nans, use_h5py)
-    launches = {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES}
-    print(f"[drivers] 5 driver calls in {time.perf_counter() - start:.3f} s, launches {launches}")
+    other_method, other_out = other_sweep_call(dem_ds, dem_filled)
+    torch.cuda.synchronize()
+    launches = {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES, **sx_sweep.LAUNCHES}
+    print(f"[drivers] 7 driver calls and ops.sx_sweep(method={other_method!r}) in "
+          f"{time.perf_counter() - start:.3f} s, launches {launches}; auto routes the "
+          f"sweep to {auto_kernel}")
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(launches[auto_kernel] >= 2, f"compute_sx_sweep did not launch {auto_kernel}")
     with plain_twins():
         ref_out = run_drivers(dem_ds, ind_nans, use_h5py)
+        _, other_ref = other_sweep_call(dem_ds, dem_filled)
     compare_outputs(main_out, ref_out, baso.data.shape)
+    check(torch.equal(torch.isnan(other_out), torch.isnan(other_ref))
+          and float(torch.nan_to_num(other_out - other_ref).abs().max()) <= SX_ATOL,
+          f"ops.sx_sweep(method={other_method!r}) disagrees with the twin")
+    check_sweep_drivers(dem_ds, main_out, other_out)
     check(np.isnan(main_out["call0/TPI_500M"].data[ind_nans]).all(), "NaN holes not reassigned")
     check_against_recipes(baso.data[:90, :144])
+    print(f"[drivers] done at {time.perf_counter() - t0:.1f} s")
 
     times = time_kernels(grids, smi_line)
+    sweep_times = time_sweeps(grids, smi_line)
+    print(f"[time] done at {time.perf_counter() - t0:.1f} s")
     sources = {
         "disk_sat": ("topo_descriptors_tpu_torch/csrc/disk_sat.cu",
                      "topo_descriptors_tpu/ops/pallas/disk_sat.py:58"),
         "sx_block": ("topo_descriptors_tpu_torch/csrc/sx_block.cu",
                      "topo_descriptors_tpu/ops/pallas/sx_block.py:67"),
+        "sx_sweep": ("topo_descriptors_tpu_torch/csrc/sx_sweep.cu",
+                     "topo_descriptors_tpu/ops/pallas/sx_block.py:139"),
+        "sx_fan": ("topo_descriptors_tpu_torch/csrc/sx_sweep.cu",
+                   "topo_descriptors_tpu/ops/pallas/sx_block.py:241"),
     }
     kernels = []
     for kernel, (source, replaces) in sources.items():
-        ms, plain_ms = times[(kernel, "900x1440")]
-        ms_big, plain_big = times[(kernel, "8192x8192")]
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kernel], "max_abs_err": errs[kernel],
-            "ms": ms, "plain_ms": plain_ms, "ms_8192": ms_big, "plain_ms_8192": plain_big,
-        })
+        entry = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[kernel], "max_abs_err": errs[kernel]}
+        if kernel in sx_sweep.LAUNCHES:  # 36 azimuths; ms at 900x1440 r = 200 m
+            for suffix, case in (("", "900x1440 r200"), ("_r2000", "900x1440 r2000"),
+                                 ("_8192", "8192x8192 r500")):
+                entry[f"ms{suffix}"] = sweep_times[(kernel, case)]
+                entry[f"plain_ms{suffix}"] = sweep_times[("twin", case)]
+        else:
+            entry["ms"], entry["plain_ms"] = times[(kernel, "900x1440")]
+            entry["ms_8192"], entry["plain_ms_8192"] = times[(kernel, "8192x8192")]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """The port stands apart from JAX and builds nothing when it is imported."""
 
 import pkgutil
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -37,7 +38,8 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert {"topo_descriptors_tpu_torch.pipeline",
             "topo_descriptors_tpu_torch.ops.cuda.disk_sat",
-            "topo_descriptors_tpu_torch.ops.cuda.sx_block"} <= set(names)
+            "topo_descriptors_tpu_torch.ops.cuda.sx_block",
+            "topo_descriptors_tpu_torch.ops.cuda.sx_sweep"} <= set(names)
 
 
 def test_no_port_file_imports_jax():
@@ -52,12 +54,25 @@ def test_kernel_sources_ship_with_the_package():
     from topo_descriptors_tpu_torch.ops.cuda import _build
 
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert {"disk_sat.cu", "sx_block.cu"} <= set(names)
-    for flag in ("arch=compute_90a,code=sm_90a", "-shared"):
-        assert flag in _build.NVCC_FLAGS
-    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert {"disk_sat.cu", "sx_block.cu", "sx_sweep.cu"} <= set(names)
+    assert (_build.CSRC / "sx_rays.cuh").exists()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "-shared" in _build.LINK_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS + _build.LINK_FLAGS
     # the library name follows the sources
     assert _build.library_path().name.startswith("libtopo_kernels_")
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    from topo_descriptors_tpu_torch.ops.cuda import _build
+
+    for src in _build.CSRC.iterdir():
+        shutil.copy(src, tmp_path)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "sx_rays.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build.library_path() != before
 
 
 @pytest.mark.cuda

@@ -43,6 +43,10 @@ RUNS = {
     "std_single": ("compute_std", dict(scales=[300])),
     "sx_r500": ("compute_sx", dict(azimuth=0, radius=500)),
     "sx_quirk_radius_min": ("compute_sx", dict(azimuth=225, radius=250, radius_min=100)),
+    # the azimuth sweep: a ragged 4-azimuth fan, and a cropped radius_min fan
+    "sx_sweep_r300": ("compute_sx_sweep", dict(azimuths=[0, 45, 120, 290], radius=300)),
+    "sx_sweep_cropped_radius_min": (
+        "compute_sx_sweep", dict(azimuths=[10, 200, 355], radius=300, radius_min=100, crop=CROP)),
 }
 
 
@@ -50,7 +54,8 @@ RUNS = {
 def test_driver_matches_jax(run, dem_with_holes, tmp_path):
     ind_nans, dem = dem_with_holes
     driver, kwargs = RUNS[run]
-    extra = {} if driver == "compute_sx" else {"ind_nans": ind_nans}
+    # like the JAX drivers, the Sx drivers take no ind_nans
+    extra = {} if driver.startswith("compute_sx") else {"ind_nans": ind_nans}
     port_files = getattr(tpipe, driver)(
         dem, outdir=tmp_path / "port", device="cpu", **extra, **kwargs
     )
@@ -86,6 +91,22 @@ def test_sharded_backend_not_ported(dem_with_holes, tmp_path):
         tpipe.compute_sx(dem, 0, 300, outdir=tmp_path, sharded=object(), device="cpu")
 
 
+def test_sx_sweep_sharded_backend_not_ported(dem_with_holes, tmp_path):
+    _, dem = dem_with_holes
+    with pytest.raises(NotImplementedError, match="A13.*A12"):
+        tpipe.compute_sx_sweep(dem, [0, 90], 300, outdir=tmp_path, sharded=object(),
+                               device="cpu")
+
+
+def test_sx_sweep_skip_existing_keeps_files(dem_with_holes, tmp_path):
+    _, dem = dem_with_holes
+    first = tpipe.compute_sx_sweep(dem, [0, 90], 300, outdir=tmp_path, device="cpu")
+    stamps = [f.stat().st_mtime_ns for f in first]
+    again = tpipe.compute_sx_sweep(dem, [0, 90], 300, outdir=tmp_path, skip_existing=True,
+                                   device="cpu")
+    assert again == first and [f.stat().st_mtime_ns for f in first] == stamps
+
+
 def test_drivers_default_to_cuda(dem_with_holes, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the error raised where CUDA is missing")
@@ -94,3 +115,5 @@ def test_drivers_default_to_cuda(dem_with_holes, tmp_path):
         tpipe.compute_tpi(dem, [100], outdir=tmp_path)
     with pytest.raises(RuntimeError, match="cuda"):
         tpipe.compute_sx(dem, 0, 300, outdir=tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpipe.compute_sx_sweep(dem, [0, 90], 300, outdir=tmp_path)

@@ -81,6 +81,17 @@ def test_sx_matches_jax_and_oracle(name, dem_tiny, interpret_pallas):
         assert (np.abs(port) == 90).any()  # the +-90 candidates win somewhere
 
 
+@pytest.mark.parametrize("method", ["xla", "pallas", "auto"])
+def test_sx_methods_match_jax(method, dem_tiny):
+    # JAX call sites name a backend: the port takes the same names
+    o, d, b, _ = _geometry("r300_radius_min100")
+    port = tops.sx(dem_tiny, o, d, b, 10.0, method=method, device="cpu").numpy()
+    xla = np.asarray(jops.sx(jnp.asarray(dem_tiny), o, d, b, 10.0, method="xla"))
+    _assert_close(port, xla, rtol=0, atol=JAX_ATOL)
+    with pytest.raises(ValueError, match="method"):
+        tops.sx(dem_tiny, o, d, b, method="scan", device="cpu")
+
+
 def test_sx_without_zero_border(dem_tiny):
     o, d, b, _ = _geometry("r300")
     port = tops.sx(dem_tiny, o, d, b, 10.0, zero_border=False, device="cpu").numpy()

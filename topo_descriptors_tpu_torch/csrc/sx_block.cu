@@ -7,10 +7,7 @@
 //                                        - (dem[y, x] + height)) * inv_g,
 // with fmaxf dropping NaN (reads outside the grid count as NaN), then
 // atan, degrees, -inf -> NaN (no valid candidate) and the zero border.
-// Grouping rays by identical 1/distance is exact: rounding of (s - base)
-// and of the product by inv >= 0 is monotonic, and the inv = +inf
-// distance-0 quirk gives +-inf or a 0 * inf NaN that fmaxf drops, exactly
-// as the per-ray form does.
+// The per-pixel arithmetic lives in sx_rays.cuh, shared with sx_sweep.cu.
 //
 // What bounds it on the H100: bytes and load instructions. Each pixel reads
 // K deduplicated ray pixels (32 at r = 500 m, 464 at r = 2000 m on 30 m)
@@ -22,14 +19,10 @@
 // output. The ray tables are runtime data, so one build serves every radius
 // and azimuth. A shared-memory halo tile is left for a later change.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "sx_rays.cuh"
 
 namespace {
 
-// `offsets` holds (oy, ox) pairs ordered by group; group g owns pairs
-// group_ptr[g] .. group_ptr[g + 1] - 1 and has reciprocal distance inv[g].
 __global__ void sx_block_kernel(const float* __restrict__ dem,
                                 const int* __restrict__ offsets,
                                 const int* __restrict__ group_ptr,
@@ -41,27 +34,13 @@ __global__ void sx_block_kernel(const float* __restrict__ dem,
   for (int y = blockIdx.y * blockDim.y + threadIdx.y; y < h;
        y += gridDim.y * blockDim.y) {
     const int64_t idx = static_cast<int64_t>(y) * w + x;
-    const bool interior =
-        y >= border && y < h - border && x >= border && x < w - border;
-    if (zero_border && !interior) {
+    if (zero_border && !sx_interior(y, x, h, w, border)) {
       out[idx] = 0.0f;
       continue;
     }
     const float base = dem[idx] + height;
-    float acc = -INFINITY;
-    for (int g = 0; g < n_groups; ++g) {
-      float best = NAN;
-      for (int k = group_ptr[g]; k < group_ptr[g + 1]; ++k) {
-        const int yy = y + offsets[2 * k];
-        const int xx = x + offsets[2 * k + 1];
-        const float v = (yy >= 0 && yy < h && xx >= 0 && xx < w)
-                            ? dem[static_cast<int64_t>(yy) * w + xx]
-                            : NAN;
-        best = fmaxf(best, v);
-      }
-      acc = fmaxf(acc, (best - base) * inv[g]);
-    }
-    out[idx] = acc == -INFINITY ? NAN : atanf(acc) * 57.29577951308232f;
+    out[idx] = sx_degrees(sx_max_ratio(dem, offsets, group_ptr, inv, 0,
+                                       n_groups, h, w, y, x, base));
   }
 }
 

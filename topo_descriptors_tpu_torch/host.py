@@ -10,7 +10,12 @@ from topo_descriptors_tpu.grid import Raster, RasterGrid, check_dem, fill_na
 from topo_descriptors_tpu.io.netcdf import get_dem_netcdf, read_raster, to_netcdf, write_raster
 from topo_descriptors_tpu.io.synthetic import basodino_like_dem, synthetic_dem
 from topo_descriptors_tpu.kernels.disk import circular_kernel
-from topo_descriptors_tpu.kernels.sx_geometry import sx_dedupe, sx_offsets
+from topo_descriptors_tpu.kernels.sx_geometry import (
+    sx_dedupe,
+    sx_offsets,
+    sx_sweep_dedupe,
+    sx_sweep_offsets,
+)
 
 __all__ = [
     "Raster",
@@ -26,4 +31,6 @@ __all__ = [
     "circular_kernel",
     "sx_dedupe",
     "sx_offsets",
+    "sx_sweep_dedupe",
+    "sx_sweep_offsets",
 ]

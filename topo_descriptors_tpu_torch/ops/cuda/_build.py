@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and bind them through ctypes.
 
 Every ``csrc/*.cu`` file of the package is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface. The library
-is named by a hash of its sources and flags, so an edit rebuilds it, and it
+(``sm_90a``), one ``nvcc`` per source and all at once, and the objects are
+linked into one shared library with a plain C interface. The library
+is named by a hash of its sources, headers (``csrc/*.cuh``) and flags, so
+an edit rebuilds it, and it
 lives in ``build/kernels/`` beside the package (listed in ``.gitignore``;
 ``TOPO_TORCH_BUILD_DIR`` moves it). There is deliberately no
-``--use_fast_math``: both kernels rely on IEEE NaN/inf behaviour in
+``--use_fast_math``: the kernels rely on IEEE NaN/inf behaviour in
 ``fmaxf``, ``0 * inf`` and ``atanf``.
 
 Each C entry point launches on the stream it is given and returns
@@ -28,8 +30,9 @@ _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +44,12 @@ _SIGNATURES = {
     # zero_border, stream
     "sx_block_forward": (_P, _P, _P, _P, _I, _P, _I, _I, _I,
                          ctypes.c_float, _I, _P),
+    # dem, offsets, group_ptr, inv, az_ptr, n_az, out, h, w, border, height,
+    # zero_border, stream
+    "sx_sweep_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                         ctypes.c_float, _I, _P),
+    "sx_fan_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                       ctypes.c_float, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -76,28 +85,47 @@ def _sources():
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return build_dir() / f"libtopo_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def _compile(target: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objects = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(_sources(), objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        failed = []
+        try:
+            for cmd, proc in zip(cmds, procs):
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{' '.join(cmd)} ({proc.returncode})\n{out}")
+        finally:
+            for proc in procs:  # only after an interrupt: stop what still runs
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        library = Path(tmp) / target.name
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(library), *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(library, target)  # atomic: a concurrent build never sees half a file
     build_seconds = time.perf_counter() - start
 
 

@@ -77,6 +77,16 @@ def sx_block_plain(
     return _epilogue(max_ratio, pad, zero_border)
 
 
+def check_dem(dem: torch.Tensor, kernel: str) -> None:
+    """Raise unless ``dem`` is what the Sx kernels take: a contiguous
+    float32 (H, W) tensor."""
+    if dem.dtype != torch.float32 or dem.dim() != 2 or not dem.is_contiguous():
+        raise ValueError(
+            f"{kernel} needs a contiguous float32 (H, W) tensor, got "
+            f"{dem.dtype} {tuple(dem.shape)} contiguous={dem.is_contiguous()}"
+        )
+
+
 def sx_block(
     dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
     zero_border: bool = True,
@@ -86,11 +96,7 @@ def sx_block(
     global LAUNCHES
     if not on_cuda(dem):
         return sx_block_plain(dem, offsets, distances, border, height, zero_border)
-    if dem.dtype != torch.float32 or dem.dim() != 2 or not dem.is_contiguous():
-        raise ValueError(
-            "sx_block needs a contiguous float32 (H, W) tensor, got "
-            f"{dem.dtype} {tuple(dem.shape)} contiguous={dem.is_contiguous()}"
-        )
+    check_dem(dem, "sx_block")
     h, w = dem.shape
     offs, ptr, inv = ray_groups(offsets, distances)
     offs_t = upload(offs, dem.device)

@@ -22,7 +22,7 @@ from topo_descriptors_tpu import geo
 from topo_descriptors_tpu.config import CFG
 from topo_descriptors_tpu.grid import Raster, check_dem
 from topo_descriptors_tpu.io.netcdf import to_netcdf
-from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets
+from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
 from topo_descriptors_tpu.utils.timing import timer
 from topo_descriptors_tpu_torch import ops
 from topo_descriptors_tpu_torch.device import as_field
@@ -58,8 +58,9 @@ def _compute_backend(dem_val, backend, device) -> torch.Tensor:
     """
     if backend is not None:
         raise NotImplementedError(
-            "sharded/tiled backends are not ported to PyTorch yet "
-            "(ROADMAP A13); pass sharded=None"
+            "sharded/tiled backends are not ported to PyTorch yet (ROADMAP "
+            "A13 for the ShardedOps mesh, A12 for the TiledRunner); pass "
+            "sharded=None"
         )
     return as_field(np.asarray(dem_val, dtype=CFG.compute_dtype), device)
 
@@ -265,6 +266,49 @@ def sx(
             ops.sx(dem_dev, offsets, distances, border, height,
                    device=dem_dev.device)
         )
+
+
+def compute_sx_sweep(
+    dem_ds: Raster,
+    azimuths,
+    radius: float,
+    height: float = 10.0,
+    azimuth_arc: float = 10.0,
+    azimuth_steps: int = 15,
+    radius_min: float = 0.0,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """Sx for a fan of azimuths in one :func:`ops.sx_sweep` call: the same
+    files as :func:`compute_sx` for each azimuth, in the order given
+    (reference usage: a 0-350 degree sweep is 36 ``compute_sx`` runs)."""
+    check_dem(dem_ds)
+    azimuths = _as_list(azimuths)
+    names = [_sx_name(radius, a) for a in azimuths]
+    if skip_existing and all(_existing(n, outdir) for n in names):
+        return [_existing(n, outdir) for n in names]
+    logger.info(
+        f"***Starting Sx sweep for azimuths {azimuths} and radius {radius}***"
+    )
+    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    _, res_meters = geo.scale_to_pixel(radius, dem_ds)
+    dx = float(res_meters["x"].mean())
+    dy = float(res_meters["y"].mean())
+    offsets, distances, border = sx_sweep_offsets(
+        azimuths, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min
+    )
+    with timer(f"sx sweep {len(azimuths)} azimuths r {radius}m"):
+        stack = _to_host(
+            ops.sx_sweep(dem_dev, offsets, distances, border, height,
+                         device=dem_dev.device)
+        )
+    return [
+        to_netcdf(array, dem_ds, name, crop, outdir, "degree")
+        for array, name in zip(stack, names)
+    ]
 
 
 def compute_sx(

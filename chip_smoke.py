@@ -18,7 +18,16 @@ Phases, each printing its lines:
    the same calls run on the plain twins;
 5. time each kernel against its twin (CUDA events, median of 20; a twin
    that takes over a second per call, median of 3);
-6. print the kernels' JSON line, then the result line.
+6. run the third slice on the 900 x 1440 grid with NaN holes, at the
+   reference's scales: ``compute_dem``, ``compute_gradient`` (both checked
+   against the same drivers on the CPU), ``compute_valley_ridge`` in valley
+   mode at 2 km (the bank route) and 20 km (the streamed route) and in
+   ridge mode at 2 km, and ``TerrainSuite.forward`` (which must launch the
+   disk and Sx kernels; its Sx must equal ``pipeline.sx``); check the
+   valley/ridge routes against each other on the card and, on a 90 x 144
+   crop, against the scipy recipe and the CPU; time the new ops and
+   drivers;
+7. print the kernels' JSON line, then the result line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before it imports the port. Imports nothing of JAX.
@@ -255,34 +264,43 @@ def memory_writer(store):
         pipeline.to_netcdf = saved
 
 
-def run_drivers(dem, ind_nans, use_h5py):
-    """All outputs of the slice's drivers on the card, keyed
-    ``"<call>/<variable>"`` (each driver call writes to its own directory)."""
+def main_path_calls(ind_nans):
+    """The driver calls of phase 4 (TPI/STD and Sx on the disk and Sx
+    kernels), as ``(driver name, kwargs)``."""
+    return [
+        ("compute_tpi", dict(scales=[500, 2000], ind_nans=ind_nans)),  # fused
+        ("compute_tpi", dict(scales=[2000], smth_factors=0.5, ind_nans=ind_nans)),
+        ("compute_tpi_std", dict(scales=[500, 2000], ind_nans=ind_nans)),
+        ("compute_sx", dict(azimuth=0, radius=500)),
+        ("compute_sx", dict(azimuth=0, radius=2000)),
+        ("compute_sx_sweep", dict(azimuths=SWEEP_AZIMUTHS, radius=2000)),
+        ("compute_sx_sweep", dict(azimuths=SWEEP_AZIMUTHS, radius=200)),
+    ]
+
+
+def run_drivers(dem, calls, use_h5py, device="cuda", prefix="call"):
+    """All outputs of ``calls`` on ``device``, keyed ``"<prefix><i>/<variable>"``
+    (each driver call writes to its own directory), and each call's wall
+    time in seconds (the drivers return host arrays, so the clock reads a
+    finished call)."""
     from topo_descriptors_tpu_torch import pipeline
     from topo_descriptors_tpu_torch.host import read_raster
 
-    calls = [
-        (pipeline.compute_tpi, dict(scales=[500, 2000], ind_nans=ind_nans)),  # fused
-        (pipeline.compute_tpi, dict(scales=[2000], smth_factors=0.5, ind_nans=ind_nans)),
-        (pipeline.compute_tpi_std, dict(scales=[500, 2000], ind_nans=ind_nans)),
-        (pipeline.compute_sx, dict(azimuth=0, radius=500)),
-        (pipeline.compute_sx, dict(azimuth=0, radius=2000)),
-        (pipeline.compute_sx_sweep, dict(azimuths=SWEEP_AZIMUTHS, radius=2000)),
-        (pipeline.compute_sx_sweep, dict(azimuths=SWEEP_AZIMUTHS, radius=200)),
-    ]
-    store = {}
+    store, walls = {}, []
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
         if not use_h5py:
             stack.enter_context(memory_writer(store))
         files = []
         for i, (driver, kwargs) in enumerate(calls):
-            files += driver(dem, outdir=Path(tmp) / f"call{i}", **kwargs)
-        torch.cuda.synchronize()
+            start = time.perf_counter()
+            files += getattr(pipeline, driver)(dem, outdir=Path(tmp) / f"{prefix}{i}",
+                                               device=device, **kwargs)
+            walls.append(time.perf_counter() - start)
         if use_h5py:
             for f in files:
                 r = read_raster(f)
                 store[f"{f.parent.name}/{r.name}"] = r
-    return store
+    return store, walls
 
 
 def compare_outputs(main, ref, shape):
@@ -476,6 +494,258 @@ def time_sweeps(grids, smi_line):
     return times
 
 
+# --- phase 6: smoothed DEM, gradient, valley/ridge and the suite ------------------
+
+# valley/ridge norm: rtol 1e-3 and atol 2e-3 as tests/test_ops.py; at the
+# 67 and 667 px scales plus 1e-5 of the largest norm: a norm sums ~size^2
+# kernel taps (4489 at 67 px), so float32 rounding grows with it (the tests
+# use 7-15 px). Direction: < 2% of the pixels may differ, where angles are
+# near-tied.
+VALLEY_RTOL, VALLEY_ATOL, VALLEY_REL_MAX = 1e-3, 2e-3, 1e-5
+DIR_MISMATCH = 0.02
+# (rtol, atol). dx/dy: the 2 km Gaussian takes the FFT route, where cuFFT and
+# the CPU FFT each land ~2e-5 from float64 (tests/test_torch_pipeline.py);
+# such a derivative error e tilts the slope by up to rad2deg(sqrt(2) e)
+GRAD_ATOL = 5e-5
+FIELD_TOL = {"DEM": (1e-5, 1e-3), "WE": (1e-3, GRAD_ATOL), "SN": (1e-3, GRAD_ATOL),
+             "SLOPE": (1e-3, float(np.rad2deg(np.sqrt(2.0) * GRAD_ATOL)))}
+ASPECT_ATOL = 2e-2
+
+
+BANK_M, STREAM_M = 2000, 20000  # valley/ridge scales: the bank and the streamed route
+VALLEY_FLATS = [0, 0.2, 0.4]
+
+
+def slice3_calls(ind_nans):
+    """The reference's own scales (examples/compute_topo_descriptors.py)."""
+    return [
+        ("compute_dem", dict(scales=[100, 2000, 20000], ind_nans=ind_nans)),
+        # 100 m is 3 px, sigma 0.75: the Sobel route
+        ("compute_gradient", dict(scales=[100, 200, 2000], sig_ratios=1, ind_nans=ind_nans)),
+        ("compute_gradient", dict(scales=[2000], sig_ratios=2, ind_nans=ind_nans)),
+        # 2 km: 67 px, an 18.6 MiB bank, the dftmm route; 20 km: 667 px, a
+        # 1.8 GiB bank above the 192 MiB budget, the streamed route
+        ("compute_valley_ridge", dict(scales=[BANK_M, STREAM_M], mode="valley", smth_factors=0.5,
+                                      flat_list=VALLEY_FLATS, ind_nans=ind_nans)),
+        ("compute_valley_ridge", dict(scales=[BANK_M], mode="ridge", flat_list=[0, 0.15, 0.3],
+                                      ind_nans=ind_nans)),
+    ]
+
+
+def valley_sizes(dem_ds):
+    """{scale: (size px, sigma at smth_factors=0.5)} as the driver derives them."""
+    from topo_descriptors_tpu_torch.host import get_sigmas, scale_to_pixel
+
+    sizes, _ = scale_to_pixel([BANK_M, STREAM_M], dem_ds)
+    sigmas = get_sigmas([0.5, 0.5], sizes)
+    return {m: (int(n), s) for m, n, s in zip((BANK_M, STREAM_M), sizes, sigmas)}
+
+
+def valley_agree(label, out, ref, rel_max=VALLEY_REL_MAX):
+    """Norms within the tolerance above (``rel_max`` of the largest norm
+    on top of the atol), directions mismatched on < 2% of the pixels;
+    ``out``/``ref`` are (norm, direction) numpy pairs; a driver's NaN holes
+    are skipped."""
+    keep = ~(np.isnan(out[0]) | np.isnan(ref[0]))
+    a, b = out[0][keep], ref[0][keep]
+    n_err = float(np.abs(a - b).max())
+    atol = VALLEY_ATOL + rel_max * float(b.max())
+    mism = float((out[1][keep] != ref[1][keep]).mean())
+    print(f"[slice3] {label}: max|norm diff| {n_err:.6g} (max norm {float(b.max()):.6g}, "
+          f"rtol {VALLEY_RTOL}, atol {atol:.3g}), direction mismatch {mism:.4%}")
+    check(np.allclose(a, b, rtol=VALLEY_RTOL, atol=atol), f"{label}: norms disagree")
+    check(mism < DIR_MISMATCH, f"{label}: {mism:.4%} directions disagree")
+    return n_err
+
+
+def compare_fields(card, cpu):
+    """DEM and gradient files of the card against the same drivers on the
+    CPU. Aspect modulo 360, with the turn a derivative error causes on a
+    gentle slope (e * sqrt(2) / |grad| radians) on top of ASPECT_ATOL."""
+    check(sorted(card) == sorted(cpu) and len(cpu) == 3 + 4 * 4, f"outputs {sorted(card)}")
+    for name in sorted(cpu):
+        a, b = card[name].data, cpu[name].data
+        check(a.shape == b.shape and a.dtype == np.float32, f"{name}: {a.shape} {a.dtype}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{name}: NaN positions differ")
+        check(np.isfinite(np.nanmax(np.abs(a))), f"{name}: no finite values")
+        kind = name.split("/")[1].split("_")[0]
+        if kind == "ASPECT":
+            slope = cpu[name.replace("ASPECT", "SLOPE")].data
+            turn = np.rad2deg(np.sqrt(2.0) * GRAD_ATOL / np.tan(np.deg2rad(slope)))
+            err = np.abs((a - b + 180.0) % 360.0 - 180.0)
+            ok = np.nanmax(err - ASPECT_ATOL - turn) <= 0
+            tol = f"{ASPECT_ATOL} + turn"
+        else:
+            rtol, atol = FIELD_TOL[kind]
+            err = np.abs(a - b)
+            ok = np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True)
+            tol = f"rtol {rtol}, atol {atol:.3g}"
+        print(f"[slice3] {name} {a.shape}: max|cuda-cpu| {float(np.nanmax(err)):.6g} ({tol})")
+        check(ok, f"{name}: the card disagrees with the CPU run")
+
+
+def valley_recipe(dem, size, mode, flats):
+    """The reference's recipe in float64 (tests/oracles.py): ndimage.rotate
+    per angle, a 3-D signal.convolve, the strictly-greater running max."""
+    from scipy import signal
+
+    from topo_descriptors_tpu_torch.host import ridge_kernels, rotate_kernels, valley_kernels
+
+    dem = dem.astype(np.float64)
+    dem = (dem - dem.mean()) / dem.std()
+    dem_b = np.broadcast_to(dem, (len(flats),) + dem.shape)
+    norm = np.full(dem.shape, -np.inf)
+    direction = np.zeros(dem.shape)
+    base = ridge_kernels(size, flats) if mode == "ridge" else valley_kernels(size, flats)
+    for angle in range(180):
+        conv = signal.convolve(dem_b, rotate_kernels(base, float(angle)).astype(np.float64),
+                               mode="same").max(axis=0)
+        greater = conv > norm
+        norm[greater] = conv[greater]
+        direction[greater] = angle
+    return np.clip(norm, 0, None), direction
+
+
+def host_pair(pair):
+    return tuple(t.cpu().numpy() for t in pair)
+
+
+def check_valley(dem_ds, dem, main_out, crop):
+    """Routes against each other on the card, the drivers against their op,
+    and a crop against the scipy recipe and the CPU run."""
+    from topo_descriptors_tpu_torch import ops
+
+    (n_bank, s_bank), (n_stream, s_stream) = valley_sizes(dem_ds).values()
+    routes = {m: host_pair(ops.valley_ridge(dem, n_bank, "valley", VALLEY_FLATS, s_bank, method=m,
+                                            device=dem.device))
+              for m in ("dftmm", "fft", "direct", "stream")}
+    grid = "x".join(map(str, dem.shape))
+    for m in ("fft", "direct", "stream"):
+        valley_agree(f"valley {BANK_M} m ({n_bank} px) {m} vs dftmm ({grid})", routes[m],
+                     routes["dftmm"])
+
+    def driver(scale):
+        return tuple(main_out[f"s3call3/VALLEY_{k}_{scale}M_SMTHFACT0.5"].data
+                     for k in ("NORM", "DIR"))
+
+    valley_agree(f"compute_valley_ridge {BANK_M} m vs ops dftmm", driver(BANK_M), routes["dftmm"])
+    streams = {c: host_pair(ops.valley_ridge_streamed(dem, n_stream, "valley", VALLEY_FLATS,
+                                                      s_stream, conv_method=c, device=dem.device))
+               for c in ("mm", "fft")}
+    valley_agree(f"valley {STREAM_M} m ({n_stream} px) stream mm vs stream fft ({grid})",
+                 streams["mm"], streams["fft"])
+    valley_agree(f"compute_valley_ridge {STREAM_M} m vs ops stream mm", driver(STREAM_M),
+                 streams["mm"])
+    for size, mode in ((9, "valley"), (15, "ridge")):
+        flats = [0, 0.15, 0.3]
+        card = host_pair(ops.valley_ridge(crop, size, mode, flats, device="cuda"))
+        valley_agree(f"{mode} {size} px crop {crop.shape}: card vs scipy recipe", card,
+                     valley_recipe(crop, size, mode, flats), rel_max=0.0)
+        valley_agree(f"{mode} {size} px crop {crop.shape}: card vs cpu", card,
+                     host_pair(ops.valley_ridge(crop, size, mode, flats, device="cpu")),
+                     rel_max=0.0)
+
+
+def run_suite(dem_ds, dem):
+    """TerrainSuite(default SuiteConfig).forward on the card, with the disk
+    and Sx kernel counts set to 0 just before the call and read just after."""
+    from topo_descriptors_tpu_torch import pipeline
+    from topo_descriptors_tpu_torch.models import SuiteConfig, TerrainSuite
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block
+
+    suite = TerrainSuite(tuple(dem.shape), SuiteConfig(), device=dem.device)
+    disk_sat.LAUNCHES = sx_block.LAUNCHES = 0
+    start = time.perf_counter()
+    out = suite(dem)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES}
+    print(f"[slice3] TerrainSuite.forward in {wall:.3f} s (first call), launches {launches}, "
+          f"keys {sorted(out)}")
+    check(all(n > 0 for n in launches.values()), f"the suite launched no kernel: {launches}")
+    for key, value in out.items():
+        ok = value.shape == dem.shape and value.device == dem.device
+        check(ok and bool(torch.isfinite(value).all()),
+              f"suite {key}: {tuple(value.shape)} {value.device}, or not finite")
+    cfg = suite.config
+    sx = pipeline.sx(dem_ds, azimuth=cfg.sx_azimuth, radius=cfg.sx_radius_m)
+    check(np.array_equal(out["sx"].cpu().numpy(), sx), "suite sx differs from pipeline.sx")
+    print("[slice3] suite sx equals pipeline.sx bit for bit (signed resolutions, dy = -30 m)")
+    return suite, launches
+
+
+def clear_valley_caches():
+    from topo_descriptors_tpu_torch.ops import dft_conv
+
+    vr = importlib.import_module("topo_descriptors_tpu_torch.ops.valley_ridge")
+    vr._BANK_DEV_CACHE.clear()
+    vr._CANVAS_DEV_CACHE.clear()
+    dft_conv._cached_plan.cache_clear()
+
+
+def time_slice3(dem_ds, dem, suite, walls, smi_line):
+    """CUDA-event times of the new ops (median of 20 after 3 warm-ups; the
+    valley/ridge calls: a first call with every cache cleared, then the
+    median of 5 or 3 warm ones) and each driver call's wall time."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import rotated_extent, scale_to_pixel
+    from topo_descriptors_tpu_torch.ops.dft_conv import get_plan
+    from topo_descriptors_tpu_torch.ops.spline_rotate import quadrant_schedule
+
+    (n2, n20), res = scale_to_pixel([2000, 20000], dem_ds)
+    s2, s20 = n2 / 4, n20 / 4  # compute_dem / compute_gradient: scale_pxl / scale_std
+    rows = [
+        (f"ops.dem 2 km (sigma {s2})", lambda: ops.dem(dem, s2, device=dem.device)),
+        (f"ops.dem 20 km (sigma {s20})", lambda: ops.dem(dem, s20, device=dem.device)),
+        ("ops.gradient 100 m (Sobel)", lambda: ops.gradient(dem, 0.75, res, device=dem.device)),
+        ("ops.gradient 2 km", lambda: ops.gradient(dem, s2, res, device=dem.device)),
+        ("ops.gradient 2 km sig_ratio 2", lambda: ops.gradient(dem, s2, res, 2, device=dem.device)),
+        ("TerrainSuite.forward", lambda: suite(dem)),
+    ]
+    grid = "x".join(map(str, dem.shape))
+    for label, fn in rows:
+        print(f"[time] {label} {grid}: {median_ms(fn):.4f} ms on {smi_line}")
+    (n_bank, s_bank), (n_stream, s_stream) = valley_sizes(dem_ds).values()
+    n_flats = len(VALLEY_FLATS)
+    n_steps = -(-len(quadrant_schedule()[0]) // 4)  # the streamed route's q_batch 4
+    valley = [
+        (f"ops.valley_ridge {BANK_M} m dftmm", max(rotated_extent(n_bank)), 180 * n_flats, 5,
+         lambda: ops.valley_ridge(dem, n_bank, "valley", VALLEY_FLATS, s_bank, method="dftmm",
+                                  device=dem.device)),
+        (f"ops.valley_ridge {STREAM_M} m stream", max(rotated_extent(n_stream)),
+         n_steps * 4 * 4 * n_flats, 3,
+         lambda: ops.valley_ridge(dem, n_stream, "valley", VALLEY_FLATS, s_stream, method="stream",
+                                  device=dem.device)),
+    ]
+    for label, kmax, n_kernels, reps, fn in valley:
+        clear_valley_caches()
+        first = median_ms(fn, reps=1, warmup=0)
+        warm = median_ms(fn, reps=reps, warmup=1)
+        macs = get_plan(*dem.shape, kmax, kmax, "same", dem.device).macs_per_kernel() * n_kernels
+        print(f"[time] {label} {grid} ({n_kernels} kernels of {kmax}^2, {macs:.4g} MACs): "
+              f"first call {first:.4f} ms, warm {warm:.4f} ms (median of {reps}, "
+              f"{macs / warm / 1e9:.3f} TMAC/s) on {smi_line}")
+    for (driver, kwargs), wall in zip(slice3_calls(None), walls):
+        shown = {k: v for k, v in kwargs.items() if k != "ind_nans"}
+        print(f"[time] {driver}({shown}) {grid} wall {wall:.3f} s on {smi_line}")
+
+
+def run_slice3(dem_ds, ind_nans, use_h5py, dem, crop, smi_line):
+    """Phase 6: the third slice's drivers and suite on the card, checked
+    against the CPU, each other and the scipy recipe, then timed."""
+    start = time.perf_counter()
+    main_out, walls = run_drivers(dem_ds, slice3_calls(ind_nans), use_h5py, prefix="s3call")
+    print(f"[slice3] 5 driver calls on the card in {time.perf_counter() - start:.3f} s")
+    check(np.isnan(main_out["s3call0/DEM_100M"].data[ind_nans]).all(), "NaN holes not reassigned")
+    cpu_out, _ = run_drivers(dem_ds, slice3_calls(ind_nans)[:3], use_h5py, device="cpu",
+                             prefix="s3call")
+    compare_fields({k: v for k, v in main_out.items() if k in cpu_out}, cpu_out)
+    check_valley(dem_ds, dem, main_out, crop)
+    suite, launches = run_suite(dem_ds, dem)
+    time_slice3(dem_ds, dem, suite, walls, smi_line)
+    return launches
+
+
 def main() -> int:
     name, smi_line = card()
     from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na, synthetic_dem
@@ -514,7 +784,7 @@ def main() -> int:
     sx_block.LAUNCHES = 0
     sx_sweep.LAUNCHES.update(sx_sweep=0, sx_fan=0)
     start = time.perf_counter()
-    main_out = run_drivers(dem_ds, ind_nans, use_h5py)
+    main_out, _ = run_drivers(dem_ds, main_path_calls(ind_nans), use_h5py)
     other_method, other_out = other_sweep_call(dem_ds, dem_filled)
     torch.cuda.synchronize()
     launches = {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES, **sx_sweep.LAUNCHES}
@@ -524,7 +794,7 @@ def main() -> int:
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
     check(launches[auto_kernel] >= 2, f"compute_sx_sweep did not launch {auto_kernel}")
     with plain_twins():
-        ref_out = run_drivers(dem_ds, ind_nans, use_h5py)
+        ref_out, _ = run_drivers(dem_ds, main_path_calls(ind_nans), use_h5py)
         _, other_ref = other_sweep_call(dem_ds, dem_filled)
     compare_outputs(main_out, ref_out, baso.data.shape)
     check(torch.equal(torch.isnan(other_out), torch.isnan(other_ref))
@@ -538,6 +808,10 @@ def main() -> int:
     times = time_kernels(grids, smi_line)
     sweep_times = time_sweeps(grids, smi_line)
     print(f"[time] done at {time.perf_counter() - t0:.1f} s")
+    del grids
+    slice3_launches = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
+                                    np.ascontiguousarray(baso.data[:90, :144]), smi_line)
+    print(f"[slice3] done at {time.perf_counter() - t0:.1f} s")
     sources = {
         "disk_sat": ("topo_descriptors_tpu_torch/csrc/disk_sat.cu",
                      "topo_descriptors_tpu/ops/pallas/disk_sat.py:58"),
@@ -552,6 +826,8 @@ def main() -> int:
     for kernel, (source, replaces) in sources.items():
         entry = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[kernel], "max_abs_err": errs[kernel]}
+        if kernel in slice3_launches:  # TerrainSuite.forward, phase 6
+            entry["launches_suite"] = slice3_launches[kernel]
         if kernel in sx_sweep.LAUNCHES:  # 36 azimuths; ms at 900x1440 r = 200 m
             for suffix, case in (("", "900x1440 r200"), ("_r2000", "900x1440 r2000"),
                                  ("_8192", "8192x8192 r500")):

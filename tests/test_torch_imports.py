@@ -39,7 +39,14 @@ def test_port_imports_without_jax():
     assert {"topo_descriptors_tpu_torch.pipeline",
             "topo_descriptors_tpu_torch.ops.cuda.disk_sat",
             "topo_descriptors_tpu_torch.ops.cuda.sx_block",
-            "topo_descriptors_tpu_torch.ops.cuda.sx_sweep"} <= set(names)
+            "topo_descriptors_tpu_torch.ops.cuda.sx_sweep",
+            "topo_descriptors_tpu_torch.ops.dem",
+            "topo_descriptors_tpu_torch.ops.gradient",
+            "topo_descriptors_tpu_torch.ops.dft_conv",
+            "topo_descriptors_tpu_torch.ops.spline_rotate",
+            "topo_descriptors_tpu_torch.ops.valley_ridge",
+            "topo_descriptors_tpu_torch.models",
+            "topo_descriptors_tpu_torch.models.suite"} <= set(names)
 
 
 def test_no_port_file_imports_jax():

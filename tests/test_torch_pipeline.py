@@ -6,7 +6,16 @@ NetCDF through the shared writer, and the files are read back with the
 shared ``read_raster`` and compared: file names, variable names, units,
 crop coordinates and values. The port runs on the CPU (the plain twins of
 its CUDA kernels). Tolerances are those of tests/test_torch_ops.py (TPI,
-STD) and tests/test_torch_sx.py (Sx).
+STD), tests/test_torch_sx.py (Sx), tests/test_torch_gradient.py (DEM and
+the gradient family; aspect compared modulo 360) and
+tests/test_torch_valley_ridge.py (valley/ridge norm; the direction may
+differ on under 2% of the pixels, where angles are near-tied). One
+exception: the 2 km gradient smooths with more than
+``CFG.fft_correlate1d_min_taps`` taps, so both packages take the FFT route
+of the Gaussian with their own FFT libraries, and each lands ~2e-5 from a
+float64 run in dx and dy (1.5-2.4e-5 on this grid); dx and dy get atol
+5e-5 here instead of 1e-5, and the aspect the turn such an error can cause
+on a gentle slope on top of its 2e-2 degrees.
 """
 
 import numpy as np
@@ -14,12 +23,16 @@ import pytest
 import torch
 
 from topo_descriptors_tpu import pipeline as jpipe
+from topo_descriptors_tpu.config import CFG
 from topo_descriptors_tpu.grid import fill_na
 from topo_descriptors_tpu.io import basodino_like_dem, read_raster
 from topo_descriptors_tpu_torch import pipeline as tpipe
 
 TOL = {"TPI": dict(rtol=1e-5, atol=1e-3), "STD": dict(rtol=1e-5, atol=2e-2),
-       "SX": dict(rtol=0, atol=2e-5)}
+       "SX": dict(rtol=0, atol=2e-5), "DEM": dict(rtol=1e-5, atol=1e-3),
+       "WE": dict(rtol=1e-3, atol=5e-5), "SN": dict(rtol=1e-3, atol=5e-5),
+       "SLOPE": dict(rtol=1e-3, atol=1e-3), "ASPECT": dict(atol=2e-2),
+       "VALLEY": dict(rtol=1e-3, atol=2e-3), "RIDGE": dict(rtol=1e-3, atol=2e-3)}
 
 
 @pytest.fixture(scope="module")
@@ -47,13 +60,41 @@ RUNS = {
     "sx_sweep_r300": ("compute_sx_sweep", dict(azimuths=[0, 45, 120, 290], radius=300)),
     "sx_sweep_cropped_radius_min": (
         "compute_sx_sweep", dict(azimuths=[10, 200, 355], radius=300, radius_min=100, crop=CROP)),
+    "dem": ("compute_dem", dict(scales=[100, 2000])),
+    # 100 m is 3 px, sigma 0.75: the Sobel route; then np.gradient routes
+    "gradient": ("compute_gradient", dict(scales=[100, 200, 2000], sig_ratios=1)),
+    "gradient_anisotropic_cropped": ("compute_gradient", dict(scales=[2000], sig_ratios=2, crop=CROP)),
+    # 33 px: a 4.8 MB bank, the dftmm route
+    "valley_smoothed": ("compute_valley_ridge", dict(scales=[1000], mode="valley",
+                                                     smth_factors=0.5, flat_list=[0, 0.2, 0.4])),
+    # forced onto the streamed route below
+    "ridge_streamed": ("compute_valley_ridge", dict(scales=[300], mode="ridge")),
 }
 
 
+def _assert_close(port, ref, refs):
+    kind = port.name.split("_")[0]
+    if kind in ("VALLEY", "RIDGE") and "_DIR_" in port.name:
+        a, b = port.data[~np.isnan(ref.data)], ref.data[~np.isnan(ref.data)]
+        assert (a != b).mean() < 0.02
+    elif kind == "ASPECT":
+        # the aspect of a gentle slope is ill-conditioned: a derivative
+        # error e turns it by up to e*sqrt(2)/|grad| radians, |grad| being
+        # tan(slope)
+        slope = refs[port.name.replace("ASPECT", "SLOPE", 1)].data
+        turn = np.rad2deg(np.sqrt(2.0) * TOL["WE"]["atol"] / np.tan(np.deg2rad(slope)))
+        diff = (port.data - ref.data + 180.0) % 360.0 - 180.0
+        assert np.nanmax(np.abs(diff) - TOL[kind]["atol"] - turn) <= 0
+    else:
+        np.testing.assert_allclose(port.data, ref.data, **TOL[kind])
+
+
 @pytest.mark.parametrize("run", list(RUNS))
-def test_driver_matches_jax(run, dem_with_holes, tmp_path):
+def test_driver_matches_jax(run, dem_with_holes, tmp_path, monkeypatch):
     ind_nans, dem = dem_with_holes
     driver, kwargs = RUNS[run]
+    if run == "ridge_streamed":  # both packages stream above this budget
+        monkeypatch.setattr(CFG, "valley_bank_max_bytes", 1)
     # like the JAX drivers, the Sx drivers take no ind_nans
     extra = {} if driver.startswith("compute_sx") else {"ind_nans": ind_nans}
     port_files = getattr(tpipe, driver)(
@@ -61,14 +102,16 @@ def test_driver_matches_jax(run, dem_with_holes, tmp_path):
     )
     jax_files = getattr(jpipe, driver)(dem, outdir=tmp_path / "jax", **extra, **kwargs)
     assert [p.name for p in port_files] == [p.name for p in jax_files]
+    refs = {}
     for pf, jf in zip(port_files, jax_files):
         port, ref = read_raster(pf), read_raster(jf)
+        refs[ref.name] = ref
         assert port.name == ref.name and port.units == ref.units
         np.testing.assert_array_equal(port.grid.y, ref.grid.y)
         np.testing.assert_array_equal(port.grid.x, ref.grid.x)
         assert port.data.shape == ref.data.shape
         np.testing.assert_array_equal(np.isnan(port.data), np.isnan(ref.data))
-        np.testing.assert_allclose(port.data, ref.data, **TOL[port.name.split("_")[0]])
+        _assert_close(port, ref, refs)
     if "crop" in kwargs:
         assert read_raster(port_files[0]).data.shape == (71, 101)
     if extra:  # original NaNs are reassigned
@@ -83,12 +126,33 @@ def test_skip_existing_keeps_files(dem_with_holes, tmp_path):
     assert again == first and first[0].stat().st_mtime_ns == stamp
 
 
+@pytest.mark.parametrize("driver,args", [
+    ("compute_dem", ([100],)), ("compute_gradient", ([100],)),
+    ("compute_valley_ridge", ([300], "ridge"))])
+def test_slice3_skip_existing_keeps_files(dem_with_holes, tmp_path, driver, args):
+    _, dem = dem_with_holes
+    run = getattr(tpipe, driver)
+    first = run(dem, *args, outdir=tmp_path, device="cpu")
+    stamps = [f.stat().st_mtime_ns for f in first]
+    again = run(dem, *args, outdir=tmp_path, skip_existing=True, device="cpu")
+    assert again == first and [f.stat().st_mtime_ns for f in first] == stamps
+
+
 def test_sharded_backend_not_ported(dem_with_holes, tmp_path):
     _, dem = dem_with_holes
     with pytest.raises(NotImplementedError, match="A13"):
         tpipe.compute_tpi(dem, [100], outdir=tmp_path, sharded=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         tpipe.compute_sx(dem, 0, 300, outdir=tmp_path, sharded=object(), device="cpu")
+
+
+@pytest.mark.parametrize("driver,args", [
+    ("compute_dem", ([100],)), ("compute_gradient", ([100],)),
+    ("compute_valley_ridge", ([300], "valley"))])
+def test_slice3_sharded_backends_not_ported(dem_with_holes, tmp_path, driver, args):
+    _, dem = dem_with_holes
+    with pytest.raises(NotImplementedError, match="A13.*A12"):
+        getattr(tpipe, driver)(dem, *args, outdir=tmp_path, sharded=object(), device="cpu")
 
 
 def test_sx_sweep_sharded_backend_not_ported(dem_with_holes, tmp_path):
@@ -117,3 +181,7 @@ def test_drivers_default_to_cuda(dem_with_holes, tmp_path):
         tpipe.compute_sx(dem, 0, 300, outdir=tmp_path)
     with pytest.raises(RuntimeError, match="cuda"):
         tpipe.compute_sx_sweep(dem, [0, 90], 300, outdir=tmp_path)
+    for driver, args in (("compute_dem", ([100],)), ("compute_gradient", ([100],)),
+                         ("compute_valley_ridge", ([300], "valley"))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            getattr(tpipe, driver)(dem, *args, outdir=tmp_path)

@@ -1,12 +1,16 @@
-"""Stencil/convolution engine on PyTorch (the main-path subset).
+"""Stencil/convolution engine on PyTorch.
 
 Counterpart of ``topo_descriptors_tpu/ops/conv.py`` with the same parity
-targets: ``scipy.signal.convolve(mode='same')`` for :func:`conv2d_same` and
-``scipy.ndimage.gaussian_filter`` (truncate=4.0, 'reflect') for
-:func:`gaussian_filter`. {0,1}-valued kernels (disks) go through the
-prefix-sum convolution of :mod:`.cuda.disk_sat` — the hand-written CUDA
-kernel for CUDA tensors, its plain twin for CPU tensors. The routing
-thresholds are the shared ``CFG`` values.
+targets: ``scipy.signal.convolve(mode='same')`` for :func:`conv2d_same`
+and the bank forms, ``scipy.ndimage.gaussian_filter`` (truncate=4.0,
+'reflect') for :func:`gaussian_filter`, ``scipy.ndimage.convolve`` for
+:func:`convolve_reflect` and ``np.gradient`` for :func:`gradient_axis`.
+Library convolutions run in full float32 (:func:`full_float32`); the
+sharded-only ``conv2d_valid_bank`` waits for the multi-device port.
+{0,1}-valued kernels (disks) go through the prefix-sum convolution of
+:mod:`.cuda.disk_sat` — the hand-written CUDA kernel for CUDA tensors, its
+plain twin for CPU tensors. The routing thresholds are the shared ``CFG``
+values.
 
 Functions take and return float32 tensors and keep them on their device.
 """
@@ -100,7 +104,7 @@ def conv2d_same_multi(xs: torch.Tensor, kernel: np.ndarray, method: str = "auto"
         method = "fft" if kernel.size >= CFG.fft_conv_min_taps else "direct"
     if method == "fft":
         return _conv2d_same_fft(xs, kernel)
-    return _conv2d_same_direct(xs, kernel, pads)
+    return _conv2d_direct(xs, kernel, pads)
 
 
 def _shift_acc_conv(xs: torch.Tensor, kernel: np.ndarray, pads_y, pads_x) -> torch.Tensor:
@@ -126,19 +130,48 @@ def _shift_acc_conv(xs: torch.Tensor, kernel: np.ndarray, pads_y, pads_x) -> tor
     return acc
 
 
+def _read_flag(get):
+    try:
+        return get()
+    except RuntimeError:  # the caller mixed the legacy and the new TF32 API
+        return None
+
+
 @contextlib.contextmanager
-def _cudnn_without_tf32():
-    # cuDNN runs float32 convolutions in TF32 by default (~3 decimal
-    # digits); the reference convolves in full float32
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def full_float32():
+    """Run cuBLAS matmuls and cuDNN convolutions in full float32 inside the
+    block, whatever the caller set globally, and restore the caller's
+    settings after it.
+
+    Both libraries may run float32 in TF32 (~2^-11 relative), which a user
+    turns on with ``torch.set_float32_matmul_precision('high')`` or the
+    ``fp32_precision`` / ``allow_tf32`` flags (cuDNN convolutions default
+    to it). The reference computes these products to ~2^-21, and TF32 is
+    enough to flip the valley/ridge direction argmax. The legacy and the
+    new flags are both pinned, so each reads "full float32" inside."""
+    mm, cd = torch.backends.cuda.matmul, torch.backends.cudnn
+    new_api = hasattr(mm, "fp32_precision")
+    legacy = (_read_flag(torch.get_float32_matmul_precision),
+              _read_flag(lambda: cd.allow_tf32))
+    new = (mm.fp32_precision, cd.fp32_precision, cd.conv.fp32_precision) if new_api else None
+    torch.set_float32_matmul_precision("highest")
+    cd.allow_tf32 = False
+    if new_api:
+        mm.fp32_precision = cd.fp32_precision = cd.conv.fp32_precision = "ieee"
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        if legacy[0] is not None:
+            torch.set_float32_matmul_precision(legacy[0])
+        if legacy[1] is not None:
+            cd.allow_tf32 = legacy[1]
+        if new_api:
+            mm.fp32_precision, cd.fp32_precision, cd.conv.fp32_precision = new
 
 
-def _conv2d_same_direct(xs: torch.Tensor, kernel: np.ndarray, pads) -> torch.Tensor:
+def _conv2d_direct(xs: torch.Tensor, kernel: np.ndarray, pads) -> torch.Tensor:
+    """True convolution of a (B, H, W) stack with zero ``pads`` =
+    ``((ly, hy), (lx, hx))``: 'same' or 'valid' placement."""
     kh, kw = kernel.shape
     if kh * kw <= CFG.shift_acc_max_taps:
         return _shift_acc_conv(xs, kernel, *pads)
@@ -147,7 +180,7 @@ def _conv2d_same_direct(xs: torch.Tensor, kernel: np.ndarray, pads) -> torch.Ten
     (ly, hy), (lx, hx) = pads
     flipped = upload(kernel[::-1, ::-1].astype(np.float32), xs.device)
     xp = F.pad(xs, (lx, hx, ly, hy))[:, None]
-    with _cudnn_without_tf32():
+    with full_float32():
         out = F.conv2d(xp, flipped[None, None])
     return out[:, 0]
 
@@ -164,6 +197,82 @@ def _conv2d_same_fft(xs: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     sh = (kh - 1) // 2
     sw = (kw - 1) // 2
     return full[:, sh : sh + h, sw : sw + w].to(xs.dtype)
+
+
+def conv2d_valid(xs: torch.Tensor, kernel: np.ndarray, method: str = "auto") -> torch.Tensor:
+    """VALID-mode true convolution of a (B, H, W) stack with one kernel
+    -> (B, H-kh+1, W-kw+1): ``out[i] = sum_j x[i+j] * flip(kernel)[j]``.
+    Routes as :func:`conv2d_same_multi`, with zero pads."""
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    runs = _sat_runs(kernel, method)
+    if runs is not None:
+        return disk_sat.disk_conv_sat(xs, kernel.shape, runs, ((0, 0), (0, 0)))
+    if method in ("auto", "sat"):
+        method = "fft" if kernel.size >= CFG.fft_conv_min_taps else "direct"
+    if method == "fft":
+        _, h, w = xs.shape
+        fh, fw = _fft_shape(h), _fft_shape(w)
+        fx = torch.fft.rfft2(xs, s=(fh, fw))
+        fk = torch.fft.rfft2(upload(kernel.astype(np.float32), xs.device), s=(fh, fw))
+        full = torch.fft.irfft2(fx * fk[None], s=(fh, fw))
+        return full[:, kh - 1 : h, kw - 1 : w].to(xs.dtype)
+    return _conv2d_direct(xs, kernel, ((0, 0), (0, 0)))
+
+
+def _bank_tensor(kernels, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(kernels, torch.Tensor):
+        return kernels.to(device=like.device, dtype=like.dtype)
+    return upload(np.asarray(kernels, dtype=np.float32), like.device)
+
+
+def conv2d_same_batch(x: torch.Tensor, kernels, method: str = "auto") -> torch.Tensor:
+    """Convolve one 2-D field with a (n, kh, kw) kernel bank -> (n, H, W),
+    ``mode='same'``: one batched FFT with the field transform computed
+    once, or one library convolution with the bank as output channels."""
+    kernels = _bank_tensor(kernels, x)
+    n, kh, kw = kernels.shape
+    if method == "auto":
+        method = "fft" if kh * kw >= CFG.fft_conv_min_taps else "direct"
+    if method == "fft":
+        h, w = x.shape
+        fh = _fft_shape(h + kh - 1)
+        fw = _fft_shape(w + kw - 1)
+        fx = torch.fft.rfft2(x, s=(fh, fw))
+        fk = torch.fft.rfft2(kernels, s=(fh, fw))
+        full = torch.fft.irfft2(fx[None] * fk, s=(fh, fw))
+        sh = (kh - 1) // 2
+        sw = (kw - 1) // 2
+        return full[:, sh : sh + h, sw : sw + w].to(x.dtype)
+    (ly, hy), (lx, hx) = _same_pads(kh), _same_pads(kw)
+    xp = F.pad(x, (lx, hx, ly, hy))[None, None]
+    with full_float32():
+        out = F.conv2d(xp, torch.flip(kernels, (1, 2))[:, None])
+    return out[0]
+
+
+def conv2d_bank_rowchan(x: torch.Tensor, kernels, padding: str = "same") -> torch.Tensor:
+    """Kernel-bank convolution with the kernel rows as input channels:
+    ``out[o,i,j] = sum_{r,u} x[i+r-lo, j+u-lo] * flip(k)[o,r,u]``, one
+    library convolution of the KY row-shifted copies of the field with a
+    (n, KY, 1, KX) weight. The valley/ridge ``method='direct'`` route.
+    Memory: the row stack is KY copies of the field."""
+    kernels = _bank_tensor(kernels, x)
+    n, ky, kx = kernels.shape
+    if padding == "same":
+        (ly, hy), pad_x = _same_pads(ky), _same_pads(kx)
+        xp = F.pad(x, (0, 0, ly, hy))
+        h_out = x.shape[0]
+    elif padding == "valid":
+        xp, pad_x = x, (0, 0)
+        h_out = x.shape[0] - ky + 1
+    else:
+        raise ValueError(f"unknown padding {padding!r}: expected same or valid")
+    rows = torch.stack([xp[r : r + h_out] for r in range(ky)])  # (KY, H_out, W)
+    rows = F.pad(rows, pad_x)
+    with full_float32():
+        out = F.conv2d(rows[None], torch.flip(kernels, (1, 2))[:, :, None, :])
+    return out[0]
 
 
 # --- reflect padding & separable Gaussian -----------------------------------
@@ -233,6 +342,31 @@ def gaussian_filter(
             x = reflect_pad_1d(x, axis, r, r)
         x = _correlate1d_valid(x, taps, axis)
     return x
+
+
+def convolve_reflect(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """True 2-D convolution with 'reflect' boundary: parity with
+    ``scipy.ndimage.convolve(x, kernel)`` (mode='reflect', origin 0), as the
+    Sobel path uses it. Odd kernel dims only."""
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    xp = reflect_pad_1d(x, 0, kh // 2, kh // 2)
+    xp = reflect_pad_1d(xp, 1, kw // 2, kw // 2)
+    return conv2d_valid(xp[None], kernel)[0]
+
+
+def gradient_axis(x: torch.Tensor, axis: int, edge_order: str = "one_sided") -> torch.Tensor:
+    """``np.gradient`` along one axis: central differences inside, one-sided
+    differences at the two edges. ``edge_order='none'`` keeps the central
+    (wrapped) differences everywhere, for blocks whose true edge lies
+    elsewhere."""
+    grad = (torch.roll(x, -1, axis) - torch.roll(x, 1, axis)) * 0.5
+    if edge_order == "none":
+        return grad
+    n = x.shape[axis]
+    first = x.narrow(axis, 1, 1) - x.narrow(axis, 0, 1)
+    last = x.narrow(axis, n - 1, 1) - x.narrow(axis, n - 2, 1)
+    return torch.cat([first, grad.narrow(axis, 1, n - 2), last], dim=axis)
 
 
 # --- exact boundary count plane ---------------------------------------------

@@ -6,7 +6,10 @@ the descriptor ops on ``device`` (default ``"cuda"``), reassigns the
 original NaNs, optionally crops, and writes one NetCDF per descriptor
 through the shared ``io.netcdf.to_netcdf`` with the reference's naming.
 Signatures match the JAX drivers plus ``device=``; the multi-device
-``sharded`` backends are not ported yet.
+``sharded`` backends are not ported yet. The drivers: ``compute_dem``,
+``compute_tpi``, ``compute_std``, ``compute_tpi_std``,
+``compute_valley_ridge``, ``compute_gradient``, ``compute_sx`` and
+``compute_sx_sweep``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,12 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-# --- naming (reference topo.py:184-188, 310-314, 956-960) --------------------
+# --- naming (reference topo.py:83-85, 184-188, 310-314, 456-463, 647-655,
+#     956-960) ---------------------------------------------------------------
+
+
+def _dem_name(scale):
+    return f"DEM_{scale}M"
 
 
 def _smth_suffix(smth_factor):
@@ -84,11 +92,58 @@ def _std_name(scale, smth_factor):
     return f"STD_{scale}M{_smth_suffix(smth_factor)}"
 
 
+def _valley_ridge_names(scale, mode, smth_factor):
+    add = _smth_suffix(smth_factor)
+    return [f"{mode}_NORM_{scale}M{add}", f"{mode}_DIR_{scale}M{add}"]
+
+
+def _gradient_names(scale, sig_ratio):
+    return [
+        f"WE_DERIVATIVE_{scale}M_SIGRATIO{sig_ratio:.3g}",
+        f"SN_DERIVATIVE_{scale}M_SIGRATIO{sig_ratio:.3g}",
+        f"SLOPE_{scale}M_SIGRATIO{sig_ratio:.3g}",
+        f"ASPECT_{scale}M_SIGRATIO{sig_ratio:.3g}",
+    ]
+
+
 def _sx_name(radius, azimuth):
     return f"SX_RADIUS{int(radius)}_AZIMUTH{int(azimuth)}"
 
 
 # --- drivers -----------------------------------------------------------------
+
+
+def compute_dem(
+    dem_ds: Raster,
+    scales,
+    ind_nans=None,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """Smoothed DEM at each scale (reference compute_dem, topo.py:16-59)."""
+    check_dem(dem_ds)
+    logger.info(f"***Starting dem computation for scales {scales} meters***")
+    scales = _as_list(scales)
+    scales_pxl, _ = geo.scale_to_pixel(scales, dem_ds)
+    sigmas = scales_pxl / CFG.scale_std
+    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+
+    written = []
+    for idx, sigma in enumerate(sigmas):
+        name = _dem_name(scales[idx])
+        if skip_existing and (path := _existing(name, outdir)):
+            logger.info(f"skipping existing {path}")
+            written.append(path)
+            continue
+        logger.info(f"Computing scale {scales[idx]} meters")
+        with timer(f"dem scale {scales[idx]}m"):
+            array = _to_host(ops.dem(dem_dev, float(sigma), device=dem_dev.device))
+        array = _apply_nans(array, ind_nans)
+        written.append(to_netcdf(array, dem_ds, name, crop, outdir, "m"))
+    return written
 
 
 def _compute_disk_family(
@@ -235,6 +290,100 @@ def compute_tpi_std(
         dem_ds, scales, smth_factors, ("tpi", "std"), ind_nans, crop, outdir,
         sharded, skip_existing, device,
     )
+
+
+def compute_valley_ridge(
+    dem_ds: Raster,
+    scales,
+    mode: str,
+    flat_list=(0, 0.15, 0.3),
+    smth_factors=None,
+    ind_nans=None,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """Valley/ridge index at each scale (reference compute_valley_ridge,
+    topo.py:317-386). :func:`ops.valley_ridge` picks the route: the
+    precomputed bank within ``CFG.valley_bank_max_bytes``, the streamed
+    on-device rotation above it."""
+    check_dem(dem_ds)
+    logger.info(f"***Starting {mode} index computation for scales {scales} meters***")
+    scales = _as_list(scales)
+    smth_factors = _as_list(smth_factors, len(scales))
+    scales_pxl, _ = geo.scale_to_pixel(scales, dem_ds)
+    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
+    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+
+    written = []
+    for idx, scale_pxl in enumerate(scales_pxl):
+        names = _valley_ridge_names(scales[idx], mode, smth_factors[idx])
+        paths = [_existing(n, outdir) for n in names]
+        if skip_existing and all(paths):
+            logger.info(f"skipping existing {paths}")
+            written.extend(paths)
+            continue
+        logger.info(
+            f"Computing scale {scales[idx]} meters with smoothing factor"
+            f" {smth_factors[idx]} ..."
+        )
+        with timer(f"{mode} scale {scales[idx]}m"):
+            arrays = ops.valley_ridge(
+                dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx],
+                device=dem_dev.device,
+            )
+            arrays = [_to_host(a) for a in arrays]
+        for array, name in zip(arrays, names):
+            array = _apply_nans(array, ind_nans)
+            written.append(to_netcdf(array, dem_ds, name, crop, outdir, "1"))
+    return written
+
+
+def compute_gradient(
+    dem_ds: Raster,
+    scales,
+    sig_ratios=1,
+    ind_nans=None,
+    crop=None,
+    outdir=".",
+    sharded=None,
+    skip_existing=False,
+    device="cuda",
+):
+    """Gradients/slope/aspect at each scale (reference compute_gradient,
+    topo.py:534-594)."""
+    check_dem(dem_ds)
+    logger.info(f"***Starting gradients computation for scales {scales} meters***")
+    scales = _as_list(scales)
+    sig_ratios = _as_list(sig_ratios, len(scales))
+    scales_pxl, res_meters = geo.scale_to_pixel(scales, dem_ds)
+    sigmas = scales_pxl / CFG.scale_std
+    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    all_units = ["1", "1", "degree", "degree"]
+
+    written = []
+    for idx, sigma in enumerate(sigmas):
+        names = _gradient_names(scales[idx], sig_ratios[idx])
+        paths = [_existing(n, outdir) for n in names]
+        if skip_existing and all(paths):
+            logger.info(f"skipping existing {paths}")
+            written.extend(paths)
+            continue
+        logger.info(
+            f"Computing scale {scales[idx]} meters with sigma ratio "
+            f"{sig_ratios[idx]} ..."
+        )
+        with timer(f"gradient scale {scales[idx]}m"):
+            arrays = ops.gradient(
+                dem_dev, float(sigma), res_meters, sig_ratios[idx], device=dem_dev.device
+            )
+            arrays = [_to_host(a) for a in arrays]
+        for array, name, units in zip(arrays, names, all_units):
+            array = _apply_nans(array, ind_nans)
+            written.append(to_netcdf(array, dem_ds, name, crop, outdir, units))
+    return written
 
 
 def sx(

@@ -27,7 +27,18 @@ Phases, each printing its lines:
    valley/ridge routes against each other on the card and, on a 90 x 144
    crop, against the scipy recipe and the CPU; time the new ops and
    drivers;
-7. print the kernels' JSON line, then the result line.
+7. out of core on the card: write the 900 x 1440 grid and an 8192 x 8192
+   one, both with holes, as deflate strip GeoTIFFs; stream every family
+   from them through ``streaming`` in 4 bands (``TiledRunner``) and hold
+   each output against the single-pass driver on the same filled grid
+   (Sx bit for bit); check that each band launched its kernel, that no
+   read exceeded one band and its halos, that the streamed 8192 x 8192
+   TPI+STD peaks below 60% of the single pass's device memory, that
+   pipelined and serial band loops give the same bits, that a failed
+   writer leaves every writer of its call aborted, and that the tiled
+   pipeline backend and the CLI's ``--stream`` give the same outputs;
+   time the 8192 x 8192 families (wall, Mpixel/s, the card's idle share);
+8. print the kernels' JSON line, then the result line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before it imports the port. Imports nothing of JAX.
@@ -42,6 +53,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -242,6 +254,19 @@ def plain_twins():
         disk_sat.disk_conv_sat, sx_block.sx_block, sx_sweep.sx_sweep, sx_sweep.sx_fan = saved
 
 
+def reset_launches():
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
+
+    disk_sat.LAUNCHES = sx_block.LAUNCHES = 0
+    sx_sweep.LAUNCHES.update(sx_sweep=0, sx_fan=0)
+
+
+def read_launches():
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
+
+    return {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES, **sx_sweep.LAUNCHES}
+
+
 @contextlib.contextmanager
 def memory_writer(store):
     """Keep the drivers' outputs in ``store`` instead of NetCDF files (the
@@ -303,12 +328,23 @@ def run_drivers(dem, calls, use_h5py, device="cuda", prefix="call"):
     return store, walls
 
 
+def disk_sx_error(kind, a, b):
+    """(max error, tolerance, unit) of a TPI, STD or Sx plane against
+    another. TPI: 1e-2 m (prefix sums of 1440-column rows, ulp <= 0.25,
+    2 x 68 reads, over the 3408-tap sum). STD, compared as variance:
+    25 m^2 (the three moment convolutions each carry such errors, and the
+    centring constant c ~ 1800 m multiplies the two linear ones). Sx:
+    2e-5 deg."""
+    if kind == "STD":
+        a, b, tol, unit = a.astype(np.float64) ** 2, b.astype(np.float64) ** 2, 25.0, "m^2"
+    else:
+        tol, unit = (1e-2, "m") if kind == "TPI" else (SX_ATOL, "deg")
+    return float(np.nanmax(np.abs(a - b))), tol, unit
+
+
 def compare_outputs(main, ref, shape):
-    """TPI: 1e-2 m (prefix sums of 1440-column rows, ulp <= 0.25, 2 x 68
-    reads, over the 3408-tap sum). STD, compared as variance: 25 m^2 (the
-    three moment convolutions each carry such errors, and the centring
-    constant c ~ 1800 m multiplies the two linear ones). Sx: 2e-5 deg.
-    One line per (call, descriptor) with the largest error of its outputs."""
+    """Every output at the tolerances of :func:`disk_sx_error`; one line per
+    (call, descriptor) with the largest error of its outputs."""
     n_out = 9 + 2 * len(SWEEP_AZIMUTHS)
     check(sorted(main) == sorted(ref) and len(main) == n_out, f"outputs {sorted(main)}")
     worst = {}
@@ -318,11 +354,7 @@ def compare_outputs(main, ref, shape):
         check(np.array_equal(np.isnan(a), np.isnan(b)), f"{name}: NaN positions differ")
         call, var = name.split("/")
         kind = var.split("_")[0]
-        if kind == "STD":
-            a, b, tol, unit = a.astype(np.float64) ** 2, b.astype(np.float64) ** 2, 25.0, "m^2"
-        else:
-            tol, unit = (1e-2, "m") if kind == "TPI" else (SX_ATOL, "deg")
-        err = float(np.nanmax(np.abs(a - b)))
+        err, tol, unit = disk_sx_error(kind, a, b)
         check(np.isfinite(np.nanmax(np.abs(a))), f"{name}: no finite values")
         check(err <= tol, f"{name}: {err} > {tol}")
         key = (call, var if kind != "SX" else "SX")
@@ -541,7 +573,7 @@ def valley_sizes(dem_ds):
     return {m: (int(n), s) for m, n, s in zip((BANK_M, STREAM_M), sizes, sigmas)}
 
 
-def valley_agree(label, out, ref, rel_max=VALLEY_REL_MAX):
+def valley_agree(label, out, ref, rel_max=VALLEY_REL_MAX, tag="slice3"):
     """Norms within the tolerance above (``rel_max`` of the largest norm
     on top of the atol), directions mismatched on < 2% of the pixels;
     ``out``/``ref`` are (norm, direction) numpy pairs; a driver's NaN holes
@@ -551,17 +583,30 @@ def valley_agree(label, out, ref, rel_max=VALLEY_REL_MAX):
     n_err = float(np.abs(a - b).max())
     atol = VALLEY_ATOL + rel_max * float(b.max())
     mism = float((out[1][keep] != ref[1][keep]).mean())
-    print(f"[slice3] {label}: max|norm diff| {n_err:.6g} (max norm {float(b.max()):.6g}, "
+    print(f"[{tag}] {label}: max|norm diff| {n_err:.6g} (max norm {float(b.max()):.6g}, "
           f"rtol {VALLEY_RTOL}, atol {atol:.3g}), direction mismatch {mism:.4%}")
     check(np.allclose(a, b, rtol=VALLEY_RTOL, atol=atol), f"{label}: norms disagree")
     check(mism < DIR_MISMATCH, f"{label}: {mism:.4%} directions disagree")
     return n_err
 
 
+def field_check(kind, a, b, slope=None):
+    """(max error, tolerance, ok) of a DEM or gradient plane ``a`` against
+    ``b``. Aspect modulo 360, with the turn a derivative error causes on a
+    gentle slope (e * sqrt(2) / |grad| radians; ``slope`` is the reference
+    slope plane) on top of ASPECT_ATOL."""
+    if kind == "ASPECT":
+        turn = np.rad2deg(np.sqrt(2.0) * GRAD_ATOL / np.tan(np.deg2rad(slope)))
+        err = np.abs((a - b + 180.0) % 360.0 - 180.0)
+        return float(np.nanmax(err)), f"{ASPECT_ATOL} + turn", np.nanmax(err - ASPECT_ATOL - turn) <= 0
+    rtol, atol = FIELD_TOL[kind]
+    return (float(np.nanmax(np.abs(a - b))), f"rtol {rtol}, atol {atol:.3g}",
+            np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True))
+
+
 def compare_fields(card, cpu):
     """DEM and gradient files of the card against the same drivers on the
-    CPU. Aspect modulo 360, with the turn a derivative error causes on a
-    gentle slope (e * sqrt(2) / |grad| radians) on top of ASPECT_ATOL."""
+    CPU, at the tolerances of :func:`field_check`."""
     check(sorted(card) == sorted(cpu) and len(cpu) == 3 + 4 * 4, f"outputs {sorted(card)}")
     for name in sorted(cpu):
         a, b = card[name].data, cpu[name].data
@@ -569,18 +614,9 @@ def compare_fields(card, cpu):
         check(np.array_equal(np.isnan(a), np.isnan(b)), f"{name}: NaN positions differ")
         check(np.isfinite(np.nanmax(np.abs(a))), f"{name}: no finite values")
         kind = name.split("/")[1].split("_")[0]
-        if kind == "ASPECT":
-            slope = cpu[name.replace("ASPECT", "SLOPE")].data
-            turn = np.rad2deg(np.sqrt(2.0) * GRAD_ATOL / np.tan(np.deg2rad(slope)))
-            err = np.abs((a - b + 180.0) % 360.0 - 180.0)
-            ok = np.nanmax(err - ASPECT_ATOL - turn) <= 0
-            tol = f"{ASPECT_ATOL} + turn"
-        else:
-            rtol, atol = FIELD_TOL[kind]
-            err = np.abs(a - b)
-            ok = np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True)
-            tol = f"rtol {rtol}, atol {atol:.3g}"
-        print(f"[slice3] {name} {a.shape}: max|cuda-cpu| {float(np.nanmax(err)):.6g} ({tol})")
+        slope = cpu[name.replace("ASPECT", "SLOPE")].data if kind == "ASPECT" else None
+        err, tol, ok = field_check(kind, a, b, slope)
+        print(f"[slice3] {name} {a.shape}: max|cuda-cpu| {err:.6g} ({tol})")
         check(ok, f"{name}: the card disagrees with the CPU run")
 
 
@@ -746,19 +782,500 @@ def run_slice3(dem_ds, ind_nans, use_h5py, dem, crop, smi_line):
     return launches
 
 
+# --- phase 7: out of core on the card --------------------------------------------
+
+OOC_TILE, BIG_TILE = 256, 2048  # rows per band: 4 bands of 900 x 1440 and of 8192 x 8192
+BIG_HOLES = [  # (rows, cols, value) of the 8192 x 8192 grid; -9999 is below the minimum elevation
+    (slice(1000, 1004), slice(2000, 2100), np.nan),
+    (slice(2046, 2051), slice(4000, 4030), np.nan),  # across the first band boundary
+    (slice(6140, 6150), slice(8000, None), np.nan),  # up to the right edge
+    (slice(3000, 3002), slice(0, 60), -9999.0),
+    (slice(7000, 7001), slice(5000, 5020), -9999.0),
+]
+DEVICE_MEMORY_SHARE = 0.6  # streamed 8192^2 TPI+STD peak / the single pass's
+
+
+def ooc_calls():
+    """The streaming driver calls at 900 x 1440, as ``(driver, kwargs)``:
+    every family, valley on the bank route (2 km) and the streamed one
+    (20 km), Sx for one azimuth and for the 36-azimuth fan."""
+    return [
+        ("compute_dem", dict(scales=[100, 2000, 20000])),
+        ("compute_tpi_std", dict(scales=[500, 2000])),
+        ("compute_gradient", dict(scales=[100, 2000])),
+        ("compute_valley_ridge", dict(scales=[BANK_M, STREAM_M], mode="valley", smth_factors=0.5,
+                                      flat_list=VALLEY_FLATS)),
+        ("compute_valley_ridge", dict(scales=[BANK_M], mode="ridge")),
+        ("compute_sx", dict(azimuths=[0], radius=500)),
+        ("compute_sx", dict(azimuths=list(SWEEP_AZIMUTHS), radius=2000)),
+    ]
+
+
+def big_calls():
+    """The streaming driver calls at 8192 x 8192. The 36-azimuth fan is left
+    out: its 9.7 GB of output would sit in host memory."""
+    return [("compute_tpi_std", dict(scales=[500, 2000])),
+            ("compute_gradient", dict(scales=[2000])),
+            ("compute_sx", dict(azimuths=[0], radius=500))]
+
+
+def single_pass_call(driver, kwargs, ind_nans):
+    """The pipeline driver call that writes the same outputs in one pass."""
+    if driver != "compute_sx":
+        return driver, dict(kwargs, ind_nans=ind_nans)
+    azimuths, radius = kwargs["azimuths"], kwargs["radius"]
+    if len(azimuths) == 1:
+        return "compute_sx", dict(azimuth=azimuths[0], radius=radius)
+    return "compute_sx_sweep", dict(azimuths=azimuths, radius=radius)
+
+
+def call_label(grid, driver, kwargs):
+    if driver == "compute_sx":
+        return f"{grid} {driver} {len(kwargs['azimuths'])} az r{kwargs['radius']}"
+    return f"{grid} {driver}{kwargs['scales']}" + (f" {kwargs['mode']}" if "mode" in kwargs else "")
+
+
+def band_kernel(driver, kwargs, auto_kernel):
+    """The hand kernel a streamed call launches at least once per band, or
+    None for the families that run on library calls."""
+    if driver == "compute_tpi_std":
+        return "disk_sat"
+    if driver == "compute_sx":
+        return "sx_block" if len(kwargs["azimuths"]) == 1 else auto_kernel
+    return None
+
+
+def band_halo(driver, kwargs, reader):
+    """Rows of halo the runner reads above and below a band for this call,
+    at its largest scale, as ``TiledRunner`` derives them."""
+    from topo_descriptors_tpu_torch.host import (
+        gaussian_radius,
+        get_sigmas,
+        rotated_extent,
+        scale_to_pixel,
+        sx_offsets,
+        sx_sweep_offsets,
+    )
+
+    if driver == "compute_sx":
+        res = reader.grid.resolution_meters()
+        dx, dy = float(res["x"].mean()), float(res["y"].mean())
+        azimuths, radius = kwargs["azimuths"], kwargs["radius"]
+        if len(azimuths) == 1:
+            return int(sx_offsets(azimuths[0], radius, dx, dy)[2])
+        return int(sx_sweep_offsets(azimuths, radius, dx, dy)[2])
+    sizes, _ = scale_to_pixel(kwargs["scales"], reader)
+    sigmas = sizes / 4  # scale_pxl / scale_std
+    if driver == "compute_dem":
+        halos = [gaussian_radius(s) for s in sigmas]
+    elif driver == "compute_tpi_std":
+        halos = [int(n) // 2 for n in sizes]
+    elif driver == "compute_gradient":
+        halos = [1 if s <= 1 else gaussian_radius(s) + 1 for s in sigmas]
+    else:
+        smooth = get_sigmas([kwargs.get("smth_factors")] * len(sizes), sizes)
+        halos = [rotated_extent(int(n))[0] // 2 + 1 + (gaussian_radius(s) if s else 0)
+                 for n, s in zip(sizes, smooth)]
+    return int(max(halos))
+
+
+def with_holes(raster, holes):
+    data = np.array(raster.data)
+    for rows, cols, value in holes:
+        data[rows, cols] = value
+    return raster.with_data(data)
+
+
+def ingest(path):
+    """(ind_nans, filled Raster) of a whole GeoTIFF as its window reader
+    serves it: the single-pass drivers' input."""
+    from topo_descriptors_tpu_torch.host import DemWindowReader, Raster
+
+    with DemWindowReader(path) as reader:
+        h = reader.shape[0]
+        filled = Raster(data=reader.read_rows(0, h), grid=reader.grid, name="DEM", units="m")
+        return np.where(reader.nan_rows(0, h)), filled
+
+
+class MemoryBandWriter:
+    """The band writer's interface (``write_rows``, ``close``, ``abort``)
+    over a host array; ``close`` publishes the raster into ``store``."""
+
+    def __init__(self, store, key, dem, name, units):
+        self.store, self.key = store, key
+        self.meta = dict(grid=dem.grid, name=name, units=units, attrs=dict(dem.attrs))
+        self.data = np.full(dem.shape, np.nan, np.float32)
+        self.rows = 0
+        self.state = "open"
+
+    def write_rows(self, r0, block):
+        self.data[r0 : r0 + block.shape[0]] = block
+        self.rows += block.shape[0]
+
+    def close(self):
+        from topo_descriptors_tpu_torch.host import Raster
+
+        check(self.rows == self.data.shape[0], f"{self.key}: {self.rows} rows written")
+        self.store[self.key] = Raster(data=self.data, **self.meta)
+        self.state = "closed"
+
+    def abort(self):
+        self.state = "aborted"
+
+
+@contextlib.contextmanager
+def memory_band_writers(store, writer=MemoryBandWriter):
+    """Keep the streaming drivers' outputs in ``store``, keyed
+    ``"<outdir name>/<variable>"``, through their one writer seam
+    (``streaming._open_writer``; the NetCDF band writer needs h5py).
+    Yields the list of writers opened."""
+    from topo_descriptors_tpu_torch import streaming
+
+    opened = []
+
+    def open_writer(dem, name, outdir, units):
+        name = str.upper(name)
+        opened.append(writer(store, f"{Path(outdir).name}/{name}", dem, name, units))
+        return Path(outdir) / f"topo_{name}.nc", opened[-1]
+
+    saved = streaming._open_writer
+    streaming._open_writer = open_writer
+    try:
+        yield opened
+    finally:
+        streaming._open_writer = saved
+
+
+def read_outputs(outdir, store):
+    """The NetCDF outputs in ``outdir`` into ``store`` (where h5py wrote them)."""
+    from topo_descriptors_tpu_torch.host import read_raster
+
+    for f in sorted(Path(outdir).glob("topo_*.nc")):
+        r = read_raster(f)
+        store[f"{Path(outdir).name}/{r.name}"] = r
+
+
+def device_busy_s(prof):
+    """Seconds in which the card ran a kernel or a copy: the union of the
+    device intervals of a torch.profiler trace; None if it holds none."""
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return (busy + hi - lo) / 1e9
+
+
+@contextlib.contextmanager
+def device_trace(on):
+    """Yields a function that gives, after the block, the card's busy
+    seconds in it (:func:`device_busy_s`), or None when ``on`` is false."""
+    if not on:
+        yield lambda: None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    result = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield lambda: result.get("busy")
+    result["busy"] = device_busy_s(prof)
+
+
+def stream_drivers(path, calls, use_h5py, tmp, prefix, tile_rows, pipeline=True, profile=False):
+    """Run the streaming ``calls`` on the GeoTIFF at ``path``, each through
+    a fresh window reader, with the kernel counts set to 0 just before the
+    call and read just after. Returns the outputs keyed
+    ``"<prefix><i>/<variable>"`` and one record per call: wall seconds,
+    launches, the most rows read at once, the band halo, and with
+    ``profile`` the card's busy seconds."""
+    from topo_descriptors_tpu_torch import streaming
+    from topo_descriptors_tpu_torch.host import DemWindowReader
+
+    store, records = {}, []
+    with contextlib.ExitStack() as stack:
+        if not use_h5py:
+            stack.enter_context(memory_band_writers(store))
+        for i, (driver, kwargs) in enumerate(calls):
+            outdir = Path(tmp) / f"{prefix}{i}"
+            with DemWindowReader(path) as reader:
+                with device_trace(profile) as busy:
+                    reset_launches()
+                    start = time.perf_counter()
+                    getattr(streaming, driver)(reader, outdir=outdir, tile_rows=tile_rows,
+                                               pipeline=pipeline, **kwargs)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - start
+                    launches = read_launches()
+                records.append(dict(wall=wall, launches=launches, rows=reader.max_rows_read,
+                                    halo=band_halo(driver, kwargs, reader), busy=busy(),
+                                    n_rows=reader.shape[0]))
+            if use_h5py:
+                read_outputs(outdir, store)
+    return store, records
+
+
+def check_bands(label, driver, kwargs, rec, tile_rows, auto_kernel):
+    """Out of core in fact: no read above one band and both halos, and the
+    family's kernel launched at least once per band."""
+    bound = min(rec["n_rows"], tile_rows + 2 * rec["halo"])
+    n_bands = -(-rec["n_rows"] // tile_rows)
+    kernel = band_kernel(driver, kwargs, auto_kernel)
+    print(f"[ooc] {label}: {n_bands} bands, wall {rec['wall']:.3f} s, max rows read "
+          f"{rec['rows']} (bound {bound}, halo {rec['halo']}), launches {rec['launches']}")
+    check(rec["rows"] <= bound, f"{label}: read {rec['rows']} rows at once, bound {bound}")
+    if kernel is not None:
+        check(rec["launches"][kernel] >= n_bands,
+              f"{label}: {kernel} launched {rec['launches'][kernel]} times for {n_bands} bands")
+
+
+def compare_to_single(label, out, call, ref, ref_call):
+    """Every output of one streamed or tiled ``call`` against the single
+    pass ``ref_call`` on the same filled grid: Sx bit for bit (a band reads
+    the same neighbours with the same code), TPI and STD as phase 4, DEM
+    and gradient as phase 6, valley/ridge as :func:`valley_agree`."""
+    names = sorted(k.split("/")[1] for k in ref if k.startswith(f"{ref_call}/"))
+    got = sorted(k.split("/")[1] for k in out if k.startswith(f"{call}/"))
+    check(bool(names) and got == names, f"{label}: outputs {got}, expected {names}")
+    lines = []
+    for var in names:
+        a, b = out[f"{call}/{var}"].data, ref[f"{ref_call}/{var}"].data
+        check(a.shape == b.shape and a.dtype == np.float32, f"{label} {var}: {a.shape} {a.dtype}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{label} {var}: NaN positions differ")
+        check(np.isfinite(np.nanmax(np.abs(a))), f"{label} {var}: no finite values")
+        kind = var.split("_")[0]
+        if kind == "SX":
+            check(same_bits(torch.from_numpy(a), torch.from_numpy(b)),
+                  f"{label} {var}: not bit-equal to the single pass")
+            continue
+        if kind in ("VALLEY", "RIDGE"):
+            if "_NORM_" in var:
+                pair = [var, var.replace("_NORM_", "_DIR_")]
+                valley_agree(f"{label} {var}", tuple(out[f"{call}/{v}"].data for v in pair),
+                             tuple(ref[f"{ref_call}/{v}"].data for v in pair), tag="ooc")
+            continue
+        if kind in ("TPI", "STD"):
+            err, tol, unit = disk_sx_error(kind, a, b)
+            ok, tol = err <= tol, f"{tol} {unit}"
+        else:
+            slope = ref[f"{ref_call}/{var.replace('ASPECT', 'SLOPE')}"].data if kind == "ASPECT" else None
+            err, tol, ok = field_check(kind, a, b, slope)
+        lines.append(f"{var} {err:.6g} ({tol})")
+        check(ok, f"{label} {var}: {err} against the single pass ({tol})")
+    if sx := sum(n.startswith("SX") for n in names):
+        lines.append(f"{sx} Sx plane(s) bit-equal")
+    if lines:
+        print(f"[ooc] {label} vs single pass: " + "; ".join(lines))
+
+
+def same_outputs(label, a, a_call, b, b_call):
+    """Two runs' outputs of one call, bit for bit."""
+    names = sorted(k.split("/")[1] for k in b if k.startswith(f"{b_call}/"))
+    check(bool(names), f"{label}: no outputs")
+    for var in names:
+        check(f"{a_call}/{var}" in a and np.array_equal(a[f"{a_call}/{var}"].data.view(np.int32),
+                                                      b[f"{b_call}/{var}"].data.view(np.int32)),
+              f"{label}: {var} differs")
+    print(f"[ooc] {label}: {len(names)} outputs bit-equal")
+
+
+def host_rss_gib():
+    """Resident memory of this process in GiB (VmRSS)."""
+    with open("/proc/self/status") as f:
+        line = next(line for line in f if line.startswith("VmRSS:"))
+    return int(line.split()[1]) / 2**20
+
+
+@contextlib.contextmanager
+def rss_peak(period_s=0.05):
+    """Yields a function that gives, after the block, the largest resident
+    set sampled in it every ``period_s`` seconds (GiB): the peak of one call,
+    which the process-wide high-water mark cannot give after the earlier
+    phases."""
+    peak, stop = [host_rss_gib()], threading.Event()
+
+    def sample():
+        while not stop.wait(period_s):
+            peak[0] = max(peak[0], host_rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield lambda: peak[0]
+    finally:
+        stop.set()
+        thread.join()
+
+
+def run_big(tif, use_h5py, tmp, smi_line, auto_kernel):
+    """The 8192 x 8192 families, one at a time: the single pass (peak
+    device memory), the streamed pipelined run under the profiler (wall,
+    Mpixel/s, the card's idle share, peak device and host memory), for
+    TPI+STD the serial run too (same bits, wall), and the comparison."""
+    ind_nans, big_ds = ingest(tif)
+    mpix = big_ds.data.size / 1e6
+    launches = dict.fromkeys(("disk_sat", "sx_block", "sx_sweep", "sx_fan"), 0)
+    for j, (driver, kwargs) in enumerate(big_calls()):
+        label = call_label("8192x8192", driver, kwargs)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ref, walls = run_drivers(big_ds, [single_pass_call(driver, kwargs, ind_nans)], use_h5py,
+                                 prefix=f"ref{j}_")
+        single_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rss_before = host_rss_gib()
+        with rss_peak() as host_peak:
+            out, (rec,) = stream_drivers(tif, [(driver, kwargs)], use_h5py, tmp, f"big{j}_",
+                                         BIG_TILE, profile=True)
+        stream_peak = torch.cuda.max_memory_allocated() - base
+        for kernel, n in rec["launches"].items():
+            launches[kernel] += n
+        check_bands(label, driver, kwargs, rec, BIG_TILE, auto_kernel)
+        compare_to_single(label, out, f"big{j}_0", ref, f"ref{j}_0")
+        busy = rec["busy"]
+        idle = "not measured (no device event in the trace)" if busy is None else (
+            f"{busy:.4f} s busy, idle share {1 - busy / rec['wall']:.4f}")
+        print(f"[time] {label} streamed pipelined from a deflate GeoTIFF: wall {rec['wall']:.3f} s "
+              f"({mpix / rec['wall']:.2f} Mpixel/s end to end), card {idle}; single pass from "
+              f"memory {walls[0]:.3f} s ({mpix / walls[0]:.2f} Mpixel/s) on {smi_line}")
+        print(f"[ooc] {label} peak device memory: streamed {stream_peak / 2**30:.3f} GiB, single "
+              f"pass {single_peak / 2**30:.3f} GiB (ratio {stream_peak / single_peak:.3f}); host "
+              f"RSS {rss_before:.2f} GiB before the streamed call, peak {host_peak():.2f} GiB "
+              f"in it (sampled every 50 ms; the call's outputs stay in host memory)")
+        if driver == "compute_tpi_std":
+            check(stream_peak < DEVICE_MEMORY_SHARE * single_peak,
+                  f"{label}: streamed peak {stream_peak} not below {DEVICE_MEMORY_SHARE} of "
+                  f"{single_peak}")
+            serial, (srec,) = stream_drivers(tif, [(driver, kwargs)], use_h5py, tmp, "bigserial",
+                                             BIG_TILE, pipeline=False, profile=True)
+            for kernel, n in srec["launches"].items():
+                launches[kernel] += n
+            same_outputs(f"{label} pipelined vs serial", out, f"big{j}_0", serial, "bigserial0")
+            sbusy = "not measured" if srec["busy"] is None else f"{srec['busy']:.4f} s busy"
+            print(f"[time] {label} serial band loop: wall {srec['wall']:.3f} s (card {sbusy}); "
+                  f"pipelined {rec['wall']:.3f} s: the overlap saves "
+                  f"{1 - rec['wall'] / srec['wall']:.4f} of the serial wall on {smi_line}")
+        del ref, out
+    return launches
+
+
+def run_out_of_core(baso, big, use_h5py, smi_line, auto_kernel):
+    """Phase 7: the streaming drivers, the tiled pipeline backend and the
+    CLI's ``--stream`` on the card, from deflate strip GeoTIFFs. Returns the
+    hand kernels' launches in the streamed and tiled calls."""
+    from topo_descriptors_tpu_torch import cli, streaming
+    from topo_descriptors_tpu_torch.host import write_geotiff
+    from topo_descriptors_tpu_torch.parallel import TiledRunner
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(("disk_sat", "sx_block", "sx_sweep", "sx_fan"), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tifs = {"900x1440": Path(tmp) / "baso.tif", "8192x8192": Path(tmp) / "big.tif"}
+        write_geotiff(baso, tifs["900x1440"], compress=True, rows_per_strip=16)
+        write_geotiff(big, tifs["8192x8192"], compress=True, rows_per_strip=64)
+        print(f"[ooc] deflate strip GeoTIFFs written in {time.perf_counter() - t0:.2f} s")
+
+        tif = tifs["900x1440"]
+        ind_nans, dem_ds = ingest(tif)
+        calls = ooc_calls()
+        ref, _ = run_drivers(dem_ds, [single_pass_call(d, k, ind_nans) for d, k in calls],
+                             use_h5py, prefix="ref")
+        out, records = stream_drivers(tif, calls, use_h5py, tmp, "ooc", OOC_TILE)
+        for i, ((driver, kwargs), rec) in enumerate(zip(calls, records)):
+            label = call_label("900x1440", driver, kwargs)
+            for kernel, n in rec["launches"].items():
+                launches[kernel] += n
+            check_bands(label, driver, kwargs, rec, OOC_TILE, auto_kernel)
+            compare_to_single(label, out, f"ooc{i}", ref, f"ref{i}")
+        check(np.isnan(out["ooc1/TPI_500M"].data[ind_nans]).all(), "NaN holes not reassigned")
+
+        fan = len(calls) - 1
+        serial, (srec,) = stream_drivers(tif, [calls[fan]], use_h5py, tmp, "serial", OOC_TILE,
+                                         pipeline=False)
+        same_outputs("900x1440 36-azimuth Sx fan pipelined vs serial", out, f"ooc{fan}",
+                     serial, "serial0")
+        print(f"[time] 900x1440 36-azimuth Sx fan streamed: pipelined {records[fan]['wall']:.3f} s, "
+              f"serial {srec['wall']:.3f} s on {smi_line}")
+
+        tiled_idx = [i for i, (d, _) in enumerate(calls)
+                     if d in ("compute_dem", "compute_tpi_std", "compute_gradient")] + [fan]
+        tiled_calls = []
+        for i in tiled_idx:
+            driver, kwargs = single_pass_call(*calls[i], ind_nans)
+            tiled_calls.append((driver, dict(kwargs, sharded=TiledRunner(OOC_TILE))))
+        reset_launches()
+        tiled, walls = run_drivers(dem_ds, tiled_calls, use_h5py, prefix="tiled")
+        for kernel, n in read_launches().items():
+            launches[kernel] += n
+        for j, i in enumerate(tiled_idx):
+            compare_to_single(f"900x1440 pipeline.{tiled_calls[j][0]} sharded=TiledRunner"
+                              f"({OOC_TILE}) in {walls[j]:.3f} s", tiled, f"tiled{j}", ref, f"ref{i}")
+
+        cli_store = {}
+        with contextlib.ExitStack() as stack:
+            if not use_h5py:
+                stack.enter_context(memory_band_writers(cli_store))
+            check(cli.main(["--dem", str(tif), "--outdir", str(Path(tmp) / "cli"),
+                            "--descriptors", "tpi", "std", "sx", "--scales", "500", "2000",
+                            "--sx-azimuths", "0", "--sx-radius", "500",
+                            "--stream", str(OOC_TILE)]) == 0, "the CLI failed")
+        if use_h5py:
+            read_outputs(Path(tmp) / "cli", cli_store)
+        check(len(cli_store) == 5, f"CLI outputs {sorted(cli_store)}")
+        same_outputs("CLI --stream TPI+STD vs compute_tpi_std", cli_store, "cli", out, "ooc1")
+        same_outputs("CLI --stream Sx vs compute_sx", cli_store, "cli", out, "ooc5")
+
+        class FailingWriter(MemoryBandWriter):
+            def write_rows(self, r0, block):
+                if r0 >= 2 * OOC_TILE:
+                    raise OSError("writer failed on its third band")
+                super().write_rows(r0, block)
+
+        failed = {}
+        with memory_band_writers(failed, FailingWriter) as opened:
+            try:
+                streaming.compute_tpi_std(tif, [500, 2000], outdir=Path(tmp) / "c1",
+                                          tile_rows=OOC_TILE)
+                raised = None
+            except OSError as exc:
+                raised = exc
+        check(raised is not None and "third band" in str(raised), f"C1: raised {raised!r}")
+        states = [w.state for w in opened]
+        check(len(opened) == 4 and set(states) == {"aborted"} and not failed,
+              f"C1: writers {states}, published {sorted(failed)}")
+        print(f"[ooc] C1: a writer failing on its third band re-raised ({raised}); all "
+              f"{len(opened)} writers of the call aborted, none published")
+        print(f"[ooc] 900x1440 done at {time.perf_counter() - t0:.1f} s")
+
+        del ref, out, serial, tiled, cli_store
+        for kernel, n in run_big(tifs["8192x8192"], use_h5py, tmp, smi_line, auto_kernel).items():
+            launches[kernel] += n
+    print(f"[ooc] done in {time.perf_counter() - t0:.1f} s, launches in the streamed and tiled "
+          f"calls {launches}")
+    for kernel in ("disk_sat", "sx_block", auto_kernel):
+        check(launches[kernel] > 0, f"the out-of-core path launched no {kernel}: {launches}")
+    return launches
+
+
 def main() -> int:
     name, smi_line = card()
-    from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na, synthetic_dem
-    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
+    from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na
+    from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
     from topo_descriptors_tpu_torch.ops.sx import _sweep_auto_method
 
     build()
 
     t0 = start = time.perf_counter()
     baso = basodino_like_dem(projected=True)
+    big = basodino_like_dem(8192, 8192, seed=0)  # synthetic_dem(8192, 8192) on a 30 m grid
     grids = {
         "900x1440": torch.from_numpy(baso.data).cuda(),
-        "8192x8192": torch.from_numpy(synthetic_dem(8192, 8192)).cuda(),
+        "8192x8192": torch.from_numpy(big.data).cuda(),
     }
     print(f"[data] grids made in {time.perf_counter() - start:.2f} s")
     errs = {"disk_sat": 0.0, "sx_block": 0.0, "sx_sweep": 0.0, "sx_fan": 0.0}
@@ -780,14 +1297,12 @@ def main() -> int:
     dem_filled = torch.from_numpy(np.ascontiguousarray(dem_ds.data, np.float32)).cuda()
     auto_kernel = {"pallas_fan": "sx_fan", "pallas_sweep": "sx_sweep"}[
         _sweep_auto_method(dem_filled)]
-    disk_sat.LAUNCHES = 0
-    sx_block.LAUNCHES = 0
-    sx_sweep.LAUNCHES.update(sx_sweep=0, sx_fan=0)
+    reset_launches()
     start = time.perf_counter()
     main_out, _ = run_drivers(dem_ds, main_path_calls(ind_nans), use_h5py)
     other_method, other_out = other_sweep_call(dem_ds, dem_filled)
     torch.cuda.synchronize()
-    launches = {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES, **sx_sweep.LAUNCHES}
+    launches = read_launches()
     print(f"[drivers] 7 driver calls and ops.sx_sweep(method={other_method!r}) in "
           f"{time.perf_counter() - start:.3f} s, launches {launches}; auto routes the "
           f"sweep to {auto_kernel}")
@@ -812,6 +1327,9 @@ def main() -> int:
     slice3_launches = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
                                     np.ascontiguousarray(baso.data[:90, :144]), smi_line)
     print(f"[slice3] done at {time.perf_counter() - t0:.1f} s")
+    streamed_launches = run_out_of_core(baso.with_data(data), with_holes(big, BIG_HOLES), use_h5py,
+                                        smi_line, auto_kernel)
+    print(f"[ooc] done at {time.perf_counter() - t0:.1f} s")
     sources = {
         "disk_sat": ("topo_descriptors_tpu_torch/csrc/disk_sat.cu",
                      "topo_descriptors_tpu/ops/pallas/disk_sat.py:58"),
@@ -828,6 +1346,7 @@ def main() -> int:
                  "launches": launches[kernel], "max_abs_err": errs[kernel]}
         if kernel in slice3_launches:  # TerrainSuite.forward, phase 6
             entry["launches_suite"] = slice3_launches[kernel]
+        entry["launches_streamed"] = streamed_launches[kernel]  # phase 7
         if kernel in sx_sweep.LAUNCHES:  # 36 azimuths; ms at 900x1440 r = 200 m
             for suffix, case in (("", "900x1440 r200"), ("_r2000", "900x1440 r2000"),
                                  ("_8192", "8192x8192 r500")):

@@ -13,14 +13,19 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a :class:`torch.device`; asking for CUDA where it is
+    """``device`` as a :class:`torch.device`, a CUDA device with its index
+    (the current device where none is given), so that two resolved devices
+    compare equal when they are the same card; asking for CUDA where it is
     unavailable raises instead of running on the CPU."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain PyTorch versions"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

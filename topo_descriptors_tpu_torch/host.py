@@ -1,17 +1,29 @@
 """The host layer the port shares with the JAX package, in one place.
 
-Scale conversion, grid metadata, NetCDF I/O, synthetic DEMs and the geometry tables (disk
-kernels, Sx rays, valley/ridge kernels) are numpy code in
+Scale conversion, grid metadata, NetCDF and GeoTIFF I/O (whole rasters,
+window readers and the band writer), synthetic DEMs and the geometry
+tables (disk kernels, Gaussian radii, Sx rays, valley/ridge kernels) are
+numpy code in
 ``topo_descriptors_tpu``'s jax-free modules; the port computes on them as
 they are. Importing this module
 loads neither ``jax`` nor ``h5py``.
 """
 
 from topo_descriptors_tpu.geo import get_sigmas, scale_to_pixel
-from topo_descriptors_tpu.grid import Raster, RasterGrid, check_dem, fill_na
-from topo_descriptors_tpu.io.netcdf import get_dem_netcdf, read_raster, to_netcdf, write_raster
+from topo_descriptors_tpu.grid import Raster, RasterGrid, check_dem, fill_na, fill_na_block
+from topo_descriptors_tpu.io.geotiff import GeoTiffWindowReader, write_geotiff
+from topo_descriptors_tpu.io.netcdf import (
+    NetCDFWindowReader,
+    RasterBandWriter,
+    get_dem_netcdf,
+    read_raster,
+    to_netcdf,
+    write_raster,
+)
 from topo_descriptors_tpu.io.synthetic import basodino_like_dem, synthetic_dem
+from topo_descriptors_tpu.io.windowed import DemWindowReader, open_dem_window
 from topo_descriptors_tpu.kernels.disk import circular_kernel
+from topo_descriptors_tpu.kernels.gaussian import gaussian_radius
 from topo_descriptors_tpu.kernels.valley import (
     ridge_kernels,
     rotate_kernels,
@@ -32,13 +44,21 @@ __all__ = [
     "RasterGrid",
     "check_dem",
     "fill_na",
+    "fill_na_block",
+    "GeoTiffWindowReader",
+    "write_geotiff",
+    "NetCDFWindowReader",
+    "RasterBandWriter",
     "get_dem_netcdf",
     "read_raster",
     "to_netcdf",
     "write_raster",
     "basodino_like_dem",
     "synthetic_dem",
+    "DemWindowReader",
+    "open_dem_window",
     "circular_kernel",
+    "gaussian_radius",
     "ridge_kernels",
     "rotate_kernels",
     "rotated_extent",

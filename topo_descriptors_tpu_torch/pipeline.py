@@ -5,8 +5,10 @@ Each driver validates the DEM, converts scales to odd pixel counts, runs
 the descriptor ops on ``device`` (default ``"cuda"``), reassigns the
 original NaNs, optionally crops, and writes one NetCDF per descriptor
 through the shared ``io.netcdf.to_netcdf`` with the reference's naming.
-Signatures match the JAX drivers plus ``device=``; the multi-device
-``sharded`` backends are not ported yet. The drivers: ``compute_dem``,
+Signatures match the JAX drivers plus ``device=``. ``sharded=`` takes a
+:class:`~topo_descriptors_tpu_torch.parallel.TiledRunner` (out-of-core
+bands on the runner's device); the multi-device ShardedOps mesh is not
+ported yet. The drivers: ``compute_dem``,
 ``compute_tpi``, ``compute_std``, ``compute_tpi_std``,
 ``compute_valley_ridge``, ``compute_gradient``, ``compute_sx`` and
 ``compute_sx_sweep``.
@@ -28,7 +30,8 @@ from topo_descriptors_tpu.io.netcdf import to_netcdf
 from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
 from topo_descriptors_tpu.utils.timing import timer
 from topo_descriptors_tpu_torch import ops
-from topo_descriptors_tpu_torch.device import as_field
+from topo_descriptors_tpu_torch.device import as_field, resolve_device
+from topo_descriptors_tpu_torch.parallel.tiles import TiledRunner
 
 logger = logging.getLogger(__name__)
 
@@ -53,19 +56,28 @@ def _existing(name: str, outdir) -> Optional[Path]:
     return path if path.exists() else None
 
 
-def _compute_backend(dem_val, backend, device) -> torch.Tensor:
-    """The DEM as a tensor on ``device``.
+def _compute_backend(dem_val, backend, device):
+    """The DEM as the backend takes it.
 
-    Only the single-device backend (``None``) is ported; the JAX package's
-    ShardedOps / TiledRunner backends are ROADMAP items A13 / A12.
+    ``backend=None`` (one pass on one device): a tensor on ``device``. A
+    :class:`TiledRunner`: the float32 host array, which the runner streams
+    to its own device in bands; ``device`` must resolve to that device.
+    The JAX package's ShardedOps mesh is ROADMAP item A13 and raises.
     """
-    if backend is not None:
+    if backend is None:
+        return as_field(np.asarray(dem_val, dtype=CFG.compute_dtype), device)
+    if not isinstance(backend, TiledRunner):
         raise NotImplementedError(
-            "sharded/tiled backends are not ported to PyTorch yet (ROADMAP "
-            "A13 for the ShardedOps mesh, A12 for the TiledRunner); pass "
-            "sharded=None"
+            "the ShardedOps mesh backend is not ported to PyTorch yet (ROADMAP "
+            "A13); pass sharded=None or a topo_descriptors_tpu_torch.parallel."
+            "TiledRunner"
         )
-    return as_field(np.asarray(dem_val, dtype=CFG.compute_dtype), device)
+    if resolve_device(device) != backend.device:
+        raise ValueError(
+            f"device={device!r} but the TiledRunner runs on {backend.device}; "
+            "pass the runner's device"
+        )
+    return np.asarray(dem_val, dtype=CFG.compute_dtype)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -140,7 +152,10 @@ def compute_dem(
             continue
         logger.info(f"Computing scale {scales[idx]} meters")
         with timer(f"dem scale {scales[idx]}m"):
-            array = _to_host(ops.dem(dem_dev, float(sigma), device=dem_dev.device))
+            if sharded is None:
+                array = _to_host(ops.dem(dem_dev, float(sigma), device=dem_dev.device))
+            else:
+                array = sharded.gaussian(dem_dev, float(sigma))
         array = _apply_nans(array, ind_nans)
         written.append(to_netcdf(array, dem_ds, name, crop, outdir, "m"))
     return written
@@ -164,7 +179,8 @@ def _compute_disk_family(
     :func:`ops.disk_descriptors` batch when there are several of them or
     both kinds are asked for; a lone (scale, kind) runs :func:`ops.tpi` or
     :func:`ops.std`. Output files keep the reference's per-(descriptor,
-    scale) contract.
+    scale) contract. A :class:`TiledRunner` backend runs the same grouping
+    banded.
     """
     check_dem(dem_ds)
     scales = _as_list(scales)
@@ -204,11 +220,13 @@ def _compute_disk_family(
                 f"({'+'.join(kk)}, sigma {sigma}) ..."
             )
             with timer(f"{'+'.join(kk)} fused x{len(idxs)} scales"):
-                batch = ops.disk_descriptors(
-                    dem_dev, sizes, sigma, compute_tpi="tpi" in kk,
-                    compute_std="std" in kk, device=dem_dev.device,
-                )
-                batch = {k: _to_host(v) for k, v in batch.items()}
+                kwargs = dict(compute_tpi="tpi" in kk, compute_std="std" in kk)
+                if sharded is None:
+                    batch = ops.disk_descriptors(dem_dev, sizes, sigma, device=dem_dev.device,
+                                                 **kwargs)
+                    batch = {k: _to_host(v) for k, v in batch.items()}
+                else:
+                    batch = sharded.disk_descriptors(dem_dev, sizes, sigma, **kwargs)
             for j, idx in enumerate(idxs):
                 for kind in kk:
                     write(kind, idx, batch[kind][j])
@@ -219,12 +237,16 @@ def _compute_disk_family(
                 f" {smth_factors[idx]} ..."
             )
             for kind in kk:
-                op = ops.tpi if kind == "tpi" else ops.std
                 with timer(f"{kind} scale {scales[idx]}m"):
-                    array = _to_host(
-                        op(dem_dev, int(scales_pxl[idx]), sigmas[idx],
-                           device=dem_dev.device)
-                    )
+                    if sharded is None:
+                        op = ops.tpi if kind == "tpi" else ops.std
+                        array = _to_host(
+                            op(dem_dev, int(scales_pxl[idx]), sigmas[idx],
+                               device=dem_dev.device)
+                        )
+                    else:
+                        op = sharded.tpi if kind == "tpi" else sharded.std
+                        array = op(dem_dev, int(scales_pxl[idx]), sigmas[idx])
                 write(kind, idx, array)
 
     return [
@@ -330,11 +352,16 @@ def compute_valley_ridge(
             f" {smth_factors[idx]} ..."
         )
         with timer(f"{mode} scale {scales[idx]}m"):
-            arrays = ops.valley_ridge(
-                dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx],
-                device=dem_dev.device,
-            )
-            arrays = [_to_host(a) for a in arrays]
+            if sharded is None:
+                arrays = ops.valley_ridge(
+                    dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx],
+                    device=dem_dev.device,
+                )
+                arrays = [_to_host(a) for a in arrays]
+            else:  # routes by the bank budget per band, as the op does
+                arrays = sharded.valley_ridge(
+                    dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx]
+                )
         for array, name in zip(arrays, names):
             array = _apply_nans(array, ind_nans)
             written.append(to_netcdf(array, dem_ds, name, crop, outdir, "1"))
@@ -376,10 +403,13 @@ def compute_gradient(
             f"{sig_ratios[idx]} ..."
         )
         with timer(f"gradient scale {scales[idx]}m"):
-            arrays = ops.gradient(
-                dem_dev, float(sigma), res_meters, sig_ratios[idx], device=dem_dev.device
-            )
-            arrays = [_to_host(a) for a in arrays]
+            if sharded is None:
+                arrays = ops.gradient(
+                    dem_dev, float(sigma), res_meters, sig_ratios[idx], device=dem_dev.device
+                )
+                arrays = [_to_host(a) for a in arrays]
+            else:
+                arrays = sharded.gradient(dem_dev, float(sigma), res_meters, sig_ratios[idx])
         for array, name, units in zip(arrays, names, all_units):
             array = _apply_nans(array, ind_nans)
             written.append(to_netcdf(array, dem_ds, name, crop, outdir, units))
@@ -411,6 +441,8 @@ def sx(
         azimuth, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min
     )
     with timer(f"sx az {azimuth} r {radius}m"):
+        if sharded is not None:
+            return sharded.sx(dem_dev, offsets, distances, border, height)
         return _to_host(
             ops.sx(dem_dev, offsets, distances, border, height,
                    device=dem_dev.device)
@@ -450,10 +482,13 @@ def compute_sx_sweep(
         azimuths, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min
     )
     with timer(f"sx sweep {len(azimuths)} azimuths r {radius}m"):
-        stack = _to_host(
-            ops.sx_sweep(dem_dev, offsets, distances, border, height,
-                         device=dem_dev.device)
-        )
+        if sharded is None:
+            stack = _to_host(
+                ops.sx_sweep(dem_dev, offsets, distances, border, height,
+                             device=dem_dev.device)
+            )
+        else:  # each band's window goes to the device once for the fan
+            stack = sharded.sx_sweep(dem_dev, offsets, distances, border, height)
     return [
         to_netcdf(array, dem_ds, name, crop, outdir, "degree")
         for array, name in zip(stack, names)

@@ -9,15 +9,25 @@ Phases, each printing its lines:
 1. check the card (name, and power limit from nvidia-smi);
 2. build the hand-written kernels from ``topo_descriptors_tpu_torch/csrc``;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   Basodino-sized grid (900 x 1440) and at 8192 x 8192; the Sx sweep and
-   fan kernels also against per-azimuth ``sx_block``, bit for bit;
+   Basodino-sized grid (900 x 1440), at 8192 x 8192 and on a 1000 x 1337
+   grid that is no multiple of either kernel's tile: the disk kernel with
+   the main path's disks and the 20 km (667 px) disk of the wide route,
+   the Sx kernel at 500 m and 2000 m (every side of the one-sided halo)
+   and with a 10 km fan of the global route, also on a 50 x 61 grid
+   smaller than the 2000 m halo; the Sx sweep and fan kernels also against
+   per-azimuth ``sx_block``, bit for bit; every route must have run;
 4. run the port's drivers on the card (TPI fused and smoothed, TPI+STD,
    Sx at 500 m and 2000 m, the 36-azimuth Sx sweep at 2000 m and 200 m)
    and ``ops.sx_sweep`` with the sweep kernel that ``auto`` does not pick,
-   check that every kernel was launched, and compare every output with
-   the same calls run on the plain twins;
+   check that every kernel was launched (the disk and Sx kernels on their
+   shared-memory routes), count the launches of ``compute_tpi(scales=
+   [2000])`` and ``compute_sx(radius=500)`` alone, and compare every
+   output with the same calls run on the plain twins;
 5. time each kernel against its twin (CUDA events, median of 20; a twin
-   that takes over a second per call, median of 3);
+   that takes over a second per call, median of 3) beside its bound (the
+   larger of its operations over the float32 peak and its bytes over the
+   HBM rate) and, for the disk kernel, the one PyTorch call that computes
+   the same function (``F.conv2d`` in full float32);
 6. run the third slice on the 900 x 1440 grid with NaN holes, at the
    reference's scales: ``compute_dem``, ``compute_gradient`` (both checked
    against the same drivers on the CPU), ``compute_valley_ridge`` in valley
@@ -94,14 +104,25 @@ def build():
     _build.library()
     print(f"[build] {_build.library_path().name} ready in "
           f"{time.perf_counter() - start:.2f} s (nvcc: {_build.build_seconds} s)")
+    kernel = None  # ptxas reports each kernel's entry, then its spills and registers
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in ("row_scanILi1E", "row_scanILi128E", "run_sum",
+                                       "disk_sat_tile", "sx_block_tile", "sx_block_kernel",
+                                       "sx_sweep_kernel", "sx_fan_kernel")
+                           if k in line), line.split("'")[1][:40])
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
 # --- phase 3: kernels against their twins ------------------------------------
 
 
-def disk_cases(dem: torch.Tensor):
+def disk_cases(dem: torch.Tensor, grid: str):
     """(name, fields, kernel, pads) as the main path feeds the kernel: the
-    mean-centred DEM (TPI) and the STD moment stack (z-c, t-c, (t-c)^2)."""
+    mean-centred DEM (TPI) and the STD moment stack (z-c, t-c, (t-c)^2);
+    at 900x1440 also the 20 km (667 px) disk of the example batch, whose
+    tile does not fit in shared memory: the wide route."""
     from topo_descriptors_tpu_torch.host import circular_kernel
     from topo_descriptors_tpu_torch.ops.conv import _same_pads
 
@@ -116,12 +137,16 @@ def disk_cases(dem: torch.Tensor):
 
     tpi67 = circular_kernel(67, exclude_center=True)
     disk17 = circular_kernel(17)
-    return [
+    cases = [
         ("tpi_disk67_b1", z[None].contiguous(), tpi67, same(tpi67)),
         ("disk17_b3", moments, disk17, same(disk17)),
         ("even4x6_b1", z[None].contiguous(), even, same(even)),
         ("disk17_b3_valid", moments, disk17, ((0, 0), (0, 0))),
     ]
+    if grid == "900x1440":
+        disk667 = circular_kernel(667)
+        cases.append(("disk667_b1_wide", z[None].contiguous(), disk667, same(disk667)))
+    return cases
 
 
 def check_disk(name, xs, kernel, pads, grid):
@@ -134,6 +159,7 @@ def check_disk(name, xs, kernel, pads, grid):
     from topo_descriptors_tpu_torch.ops.cuda import disk_sat
 
     runs = _binary_kernel_runs(kernel[::-1, ::-1])
+    route = disk_sat.route(kernel.shape, len(disk_sat.run_table(runs)[0]))
     row_sums = xs.abs().sum(dim=-1).amax(dim=-1)  # per field
     pmax = float(row_sums.max())
     scale = torch.clamp(torch.ceil(row_sums / 2**23), min=1.0)[:, None, None]
@@ -149,18 +175,27 @@ def check_disk(name, xs, kernel, pads, grid):
     err = float((out - ref).abs().max())
     wq = xs.shape[2] + pads[1][0] + pads[1][1] + 1
     tol = 2 * len(runs) * math.ceil(math.log2(wq)) * EPS32 * pmax
-    print(f"[parity] disk_sat {name} {grid} B={xs.shape[0]}: integer fields bit-equal; "
+    print(f"[parity] disk_sat {name} {grid} B={xs.shape[0]} ({route} route): integer fields bit-equal; "
           f"max|kernel-twin| {err:.6g} (|out| <= {float(ref.abs().max()):.6g}, tol {tol:.6g})")
     check(err <= tol, f"disk_sat {name} {grid}: {err} > {tol}")
     return err
 
 
-def sx_cases():
+def sx_cases(grid):
+    """(name, offsets, distances, border) of the deduplicated rays checked
+    on ``grid``: the main path's 500 m and 2000 m, the distance-0 and
+    radius_min fans, every side of the one-sided halo at 2000 m (azimuths
+    90, 180, 270), and at 900x1440 a 10 km fan at 45 degrees whose halo
+    does not fit in shared memory: the global route."""
     from topo_descriptors_tpu_torch.host import sx_dedupe, sx_offsets
 
     cases = [("r500_az0", 0.0, 500.0, 0.0), ("r2000_az0", 0.0, 2000.0, 0.0),
              ("r250_az225_distance0", 225.0, 250.0, 0.0),
-             ("r500_az0_radius_min100", 0.0, 500.0, 100.0)]
+             ("r500_az0_radius_min100", 0.0, 500.0, 100.0),
+             ("r2000_az90", 90.0, 2000.0, 0.0), ("r2000_az180", 180.0, 2000.0, 0.0),
+             ("r2000_az270", 270.0, 2000.0, 0.0)]
+    if grid == "900x1440":
+        cases.append(("r10000_az45_global", 45.0, 10_000.0, 0.0))
     for name, az, radius, rmin in cases:
         o, d, b = sx_offsets(az, radius, 30.0, 30.0, radius_min=rmin)
         o, d = sx_dedupe(o, d)
@@ -170,13 +205,15 @@ def sx_cases():
 def check_sx(name, dem, o, d, b, grid):
     from topo_descriptors_tpu_torch.ops.cuda import sx_block
 
+    offs, _, inv = sx_block.ray_groups(o, d)
+    route = sx_block.route(sx_block.halo_box(offs), len(offs), len(inv))
     out = sx_block.sx_block(dem, o, d, b, 10.0)
     torch.cuda.synchronize()
     ref = sx_block.sx_block_plain(dem, o, d, b, 10.0)
     check(torch.equal(torch.isnan(out), torch.isnan(ref)),
           f"sx_block {name} {grid}: NaN positions differ")
     err = float(torch.nan_to_num(out - ref).abs().max())
-    print(f"[parity] sx_block {name} {grid} K={len(o)} border={b}: "
+    print(f"[parity] sx_block {name} {grid} K={len(o)} border={b} ({route} route): "
           f"max|kernel-twin| {err:.6g} deg (tol {SX_ATOL}), NaN positions equal")
     check(err <= SX_ATOL, f"sx_block {name} {grid}: {err} > {SX_ATOL}")
     return err
@@ -259,12 +296,21 @@ def reset_launches():
 
     disk_sat.LAUNCHES = sx_block.LAUNCHES = 0
     sx_sweep.LAUNCHES.update(sx_sweep=0, sx_fan=0)
+    for routes in (disk_sat.ROUTE_LAUNCHES, sx_block.ROUTE_LAUNCHES):
+        routes.update(dict.fromkeys(routes, 0))
 
 
 def read_launches():
     from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
 
     return {"disk_sat": disk_sat.LAUNCHES, "sx_block": sx_block.LAUNCHES, **sx_sweep.LAUNCHES}
+
+
+def read_route_launches():
+    """Launches per route of the two kernels that have two."""
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block
+
+    return {"disk_sat": dict(disk_sat.ROUTE_LAUNCHES), "sx_block": dict(sx_block.ROUTE_LAUNCHES)}
 
 
 @contextlib.contextmanager
@@ -450,7 +496,76 @@ def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+# Published peaks of one H100 SXM at its 700 W limit: float32 outside the
+# tensor cores, and HBM3 bandwidth. A kernel's bound is the larger of its
+# operations and its bytes (each input read once, each output written once)
+# over these rates.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def bound(ops, nbytes):
+    """(least ms, which term sets it) of ``ops`` float32 operations moving
+    ``nbytes`` through device memory."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def disk_work(shape, kshape, runs, pads):
+    """(operations, bytes) of one disk convolution of a (B, H, W) stack: the
+    row scan's one add per padded input, then per output one add per prefix
+    read (2 x runs), one subtraction per run group and one add per group
+    after the first; the fields read once, the output written once."""
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat
+
+    (ly, hy), (lx, hx) = pads
+    b, h, w = shape
+    h_out, w_out = h + ly + hy - kshape[0] + 1, w + lx + hx - kshape[1] + 1
+    n_groups = len(disk_sat.group_runs(runs))
+    ops = b * h_out * w_out * (2 * len(runs) + 2 * n_groups - 1) + b * (h + ly + hy) * (w + lx + hx)
+    return ops, 4 * b * (h * w + h_out * w_out)
+
+
+def sx_work(shape, offsets, distances, border):
+    """(operations, bytes) of the Sx kernels on an (H, W) DEM for one
+    azimuth's rays ((K, 2) offsets) or a fan's ((A, K, 2)): per interior
+    pixel (the zero border computes nothing) and azimuth, one fmax per kept
+    ray and a subtraction, a product and an fmax per distance group; the
+    DEM read once, one plane written per azimuth."""
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block
+
+    h, w = shape
+    offsets = np.asarray(offsets).reshape(-1, *np.asarray(offsets).shape[-2:])
+    distances = np.asarray(distances).reshape(len(offsets), -1)
+    interior = max(h - 2 * border, 0) * max(w - 2 * border, 0)
+    ops = 0
+    for o, d in zip(offsets, distances):
+        offs, _, inv = sx_block.ray_groups(o, d)
+        ops += interior * (len(offs) + 3 * len(inv))
+    return ops, 4 * h * w * (1 + len(offsets))
+
+
+def disk_library(z, kernel):
+    """One PyTorch call that computes the same function as the disk kernel:
+    ``F.conv2d`` of the (B, 1, H, W) stack with the (flipped) kernel and
+    'same' padding, in full float32 (``full_float32`` sets cuDNN's
+    ``allow_tf32`` to False). Timed here as a yardstick only; the port
+    never calls it."""
+    from topo_descriptors_tpu_torch.ops.conv import full_float32
+
+    weight = torch.from_numpy(np.ascontiguousarray(kernel[::-1, ::-1], np.float32))
+    weight = weight[None, None].to(z.device)
+    pad = kernel.shape[0] // 2
+
+    def run():
+        with full_float32():
+            return torch.nn.functional.conv2d(z[:, None], weight, padding=pad)[:, 0]
+
+    return run
+
+
 def time_kernels(grids, smi_line):
+    """Kernel, twin and (for the disk) library times of the main path's two
+    kernels, with their bounds, at both grids; then the whole ops."""
     from topo_descriptors_tpu_torch import ops
     from topo_descriptors_tpu_torch.host import circular_kernel, sx_dedupe, sx_offsets
     from topo_descriptors_tpu_torch.ops.conv import _binary_kernel_runs, _same_pads
@@ -465,18 +580,32 @@ def time_kernels(grids, smi_line):
     for grid, dem in grids.items():
         mpix = dem.numel() / 1e6
         z = (dem - torch.round(dem.mean()))[None].contiguous()
+        library = disk_library(z, tpi67)
+        lib_err = float((library() - disk_sat.disk_conv_sat(z, (67, 67), runs, pads)).abs().max())
         rows = [
             ("disk_sat", "TPI-2000m conv", lambda: disk_sat.disk_conv_sat(z, (67, 67), runs, pads),
-             lambda: disk_sat.disk_conv_sat_plain(z, (67, 67), runs, pads)),
+             lambda: disk_sat.disk_conv_sat_plain(z, (67, 67), runs, pads),
+             disk_work(z.shape, (67, 67), runs, pads), library),
             ("sx_block", "Sx-500m", lambda: sx_block.sx_block(dem, o, d, b, 10.0),
-             lambda: sx_block.sx_block_plain(dem, o, d, b, 10.0)),
+             lambda: sx_block.sx_block_plain(dem, o, d, b, 10.0),
+             sx_work(dem.shape, o, d, b), None),
         ]
-        for kernel, label, fast, plain in rows:
+        for kernel, label, fast, plain, work, lib in rows:
             t_plain, t_kernel = median_ms(plain), median_ms(fast)
-            times[(kernel, grid)] = (t_kernel, t_plain)
+            t_bound, bound_by = bound(*work)
+            if lib is None:
+                t_lib, lib_text = None, "library call: none (no single PyTorch call computes Sx)"
+            else:
+                t_lib, reps = slow_median_ms(lib)
+                lib_text = (f"library F.conv2d full float32 {t_lib:.4f} ms (median of {reps}; "
+                            f"max|conv2d-kernel| {lib_err:.6g})")
+            times[(kernel, grid)] = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound,
+                                         bound_by=bound_by, library_ms=t_lib)
             print(f"[time] {label} {grid}: kernel {t_kernel:.4f} ms "
                   f"({mpix / t_kernel * 1e3:.1f} Mpixel/s), twin {t_plain:.4f} ms "
-                  f"({mpix / t_plain * 1e3:.1f} Mpixel/s) on {smi_line}")
+                  f"({mpix / t_plain * 1e3:.1f} Mpixel/s); bound {t_bound:.4f} ms ({bound_by}; "
+                  f"{work[0]:.4g} ops, {work[1]:.4g} bytes), share of bound "
+                  f"{t_bound / t_kernel:.4f}; {lib_text} on {smi_line}")
         t_tpi = median_ms(lambda: ops.tpi(dem, 67, device=dem.device))
         t_sx = median_ms(lambda: ops.sx(dem, o, d, b, device=dem.device))
         print(f"[time] whole op {grid}: ops.tpi(67 px) {t_tpi:.4f} ms "
@@ -509,6 +638,11 @@ def time_sweeps(grids, smi_line):
         o, d = sx_sweep_dedupe(o, d)
         mpix_az = dem.numel() * len(o) / 1e6
         case = f"{grid} r{int(radius)}"
+        work = sx_work(dem.shape, o, d, b)
+        times[("bound", case)] = bound(*work)
+        print(f"[time] Sx sweep 36 az {case}: bound {times[('bound', case)][0]:.4f} ms "
+              f"({times[('bound', case)][1]}; {work[0]:.4g} ops, {work[1]:.4g} bytes); "
+              f"library call: none (no single PyTorch call computes Sx)")
         rows = {
             "sx_sweep": lambda: sx_sweep.sx_sweep(dem, o, d, b, 10.0),
             "sx_fan": lambda: sx_sweep.sx_fan(dem, o, d, b, 10.0),
@@ -1279,15 +1413,26 @@ def main() -> int:
     }
     print(f"[data] grids made in {time.perf_counter() - start:.2f} s")
     errs = {"disk_sat": 0.0, "sx_block": 0.0, "sx_sweep": 0.0, "sx_fan": 0.0}
-    for grid, dem in grids.items():
-        for case in disk_cases(dem):
-            errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
-        for case in sx_cases():
+    reset_launches()
+    # 1000 x 1337: no multiple of either kernel's tile; 50 x 61: smaller
+    # than the 2000 m halo (border 67)
+    ragged = torch.from_numpy(basodino_like_dem(1000, 1337, seed=3).data).cuda()
+    small = grids["900x1440"][:50, :61].contiguous()
+    for grid, dem in {**grids, "1000x1337": ragged, "50x61": small}.items():
+        if grid != "50x61":
+            for case in disk_cases(dem, grid):
+                errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
+        for case in sx_cases(grid):
             errs["sx_block"] = max(errs["sx_block"], check_sx(case[0], dem, *case[1:], grid))
-        for case in sweep_cases(grid):
-            for kernel, err in check_sweep(case[0], dem, *case[1:], grid).items():
-                errs[kernel] = max(errs[kernel], err)
-    print(f"[parity] done at {time.perf_counter() - t0:.1f} s")
+        if grid in grids:
+            for case in sweep_cases(grid):
+                for kernel, err in check_sweep(case[0], dem, *case[1:], grid).items():
+                    errs[kernel] = max(errs[kernel], err)
+    routes = read_route_launches()
+    print(f"[parity] done at {time.perf_counter() - t0:.1f} s; launches per route {routes}")
+    for kernel, counts in routes.items():
+        check(all(n > 0 for n in counts.values()), f"{kernel}: a route was not run: {counts}")
+    del ragged, small
 
     data = np.array(baso.data)
     data[100:104, 200:230] = np.nan  # holes: filled for compute, NaN again in the outputs
@@ -1302,12 +1447,26 @@ def main() -> int:
     main_out, _ = run_drivers(dem_ds, main_path_calls(ind_nans), use_h5py)
     other_method, other_out = other_sweep_call(dem_ds, dem_filled)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches, main_routes = read_launches(), read_route_launches()
     print(f"[drivers] 7 driver calls and ops.sx_sweep(method={other_method!r}) in "
-          f"{time.perf_counter() - start:.3f} s, launches {launches}; auto routes the "
-          f"sweep to {auto_kernel}")
+          f"{time.perf_counter() - start:.3f} s, launches {launches}, per route {main_routes}; "
+          f"auto routes the sweep to {auto_kernel}")
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
     check(launches[auto_kernel] >= 2, f"compute_sx_sweep did not launch {auto_kernel}")
+    check(main_routes["disk_sat"]["fused"] > 0 and main_routes["sx_block"]["tile"] > 0,
+          f"the main path missed the fused disk or the Sx tile route: {main_routes}")
+    per_call = {}
+    for driver, kwargs in (("compute_tpi", dict(scales=[2000], ind_nans=ind_nans)),
+                           ("compute_sx", dict(azimuth=0, radius=500))):
+        reset_launches()
+        run_drivers(dem_ds, [(driver, kwargs)], use_h5py, prefix="one")
+        torch.cuda.synchronize()
+        label = f"{driver}({'scales=[2000]' if driver == 'compute_tpi' else 'radius=500'})"
+        per_call[label] = {k: n for k, n in read_launches().items() if n}
+        per_call[label]["routes"] = {k: {r: n for r, n in v.items() if n}
+                                     for k, v in read_route_launches().items()
+                                     if any(v.values())}
+    print(f"[drivers] launches per call: {per_call}")
     with plain_twins():
         ref_out, _ = run_drivers(dem_ds, main_path_calls(ind_nans), use_h5py)
         _, other_ref = other_sweep_call(dem_ds, dem_filled)
@@ -1344,6 +1503,10 @@ def main() -> int:
     for kernel, (source, replaces) in sources.items():
         entry = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[kernel], "max_abs_err": errs[kernel]}
+        if kernel in main_routes:  # launches per route on the main path, and per call
+            entry["launches_routes"] = main_routes[kernel]
+            entry["launches_per_call"] = {call: counts.get(kernel, 0)
+                                          for call, counts in per_call.items()}
         if kernel in slice3_launches:  # TerrainSuite.forward, phase 6
             entry["launches_suite"] = slice3_launches[kernel]
         entry["launches_streamed"] = streamed_launches[kernel]  # phase 7
@@ -1352,9 +1515,12 @@ def main() -> int:
                                  ("_8192", "8192x8192 r500")):
                 entry[f"ms{suffix}"] = sweep_times[(kernel, case)]
                 entry[f"plain_ms{suffix}"] = sweep_times[("twin", case)]
-        else:
-            entry["ms"], entry["plain_ms"] = times[(kernel, "900x1440")]
-            entry["ms_8192"], entry["plain_ms_8192"] = times[(kernel, "8192x8192")]
+                entry[f"bound_ms{suffix}"], entry[f"bound_by{suffix}"] = sweep_times[("bound", case)]
+            entry["library_ms"] = None  # no single PyTorch call computes Sx
+        else:  # TPI-2000m conv / Sx-500m at 900x1440, then at 8192x8192
+            for suffix, grid in (("", "900x1440"), ("_8192", "8192x8192")):
+                for key, value in times[(kernel, grid)].items():
+                    entry[f"{key}{suffix}"] = value
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

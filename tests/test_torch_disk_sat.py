@@ -23,7 +23,7 @@ import topo_descriptors_tpu.ops.pallas.disk_sat as dsat
 from topo_descriptors_tpu import kernels
 from topo_descriptors_tpu.ops import conv as jconv
 from topo_descriptors_tpu_torch.ops import conv as tconv
-from topo_descriptors_tpu_torch.ops.cuda import disk_sat
+from topo_descriptors_tpu_torch.ops.cuda import _build, disk_sat
 
 RTOL, ATOL = 1e-5, 0.25
 
@@ -158,3 +158,78 @@ def test_disk_sat_kernel_matches_twin_on_cuda(case, dem_tiny):
     assert disk_sat.LAUNCHES == before + 1
     plain = disk_sat.disk_conv_sat_plain(x, kernel.shape, runs, pads)
     np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+def _disk_table_len(size):
+    runs = jconv._binary_kernel_runs(kernels.circular_kernel(size, exclude_center=True)[::-1, ::-1])
+    return len(disk_sat.run_table(runs)[0])
+
+
+@pytest.mark.parametrize("size,expected", [(17, "fused"), (67, "fused"), (667, "wide"),
+                                           (3333, "wide")])
+def test_route_is_chosen_by_the_kernel_alone(size, expected):
+    """The fused tile of the 17- and 67-px disks fits in the 227 KB of
+    shared memory, that of the 20 km (667 px) and 100 km (3333 px) disks
+    does not; nothing but the kernel's shape and run table decides."""
+    table_len = _disk_table_len(size)
+    assert disk_sat.route((size, size), table_len) == expected
+    smem = disk_sat.fused_smem_bytes((size, size), table_len)
+    staged = (disk_sat.TILE_H + size - 1) * (disk_sat.TILE_W + size) * 4
+    assert staged < smem <= staged + 4 * table_len + 12
+    assert (smem <= _build.SMEM_PER_BLOCK) == (expected == "fused")
+
+
+def test_run_table_is_uploaded_once_per_table():
+    """A repeated call with the same runs and pads finds its table on the
+    device; the cache holds a few tables, the oldest goes first."""
+    disk_sat.TABLES.clear()
+    before = disk_sat.TABLES.builds
+    runs = jconv._binary_kernel_runs(kernels.circular_kernel(9)[::-1, ::-1])
+    pads = ((4, 4), (4, 4))
+    first = disk_sat.device_table(runs, pads, "cpu")
+    again = disk_sat.device_table(list(runs), pads, torch.device("cpu"))
+    assert again is first and disk_sat.TABLES.builds == before + 1
+    table, n_groups = disk_sat.run_table(runs)
+    np.testing.assert_array_equal(first[0].numpy(), table)
+    assert first[1:] == (n_groups, len(table))
+    for size in range(11, 11 + 2 * disk_sat.TABLES.size, 2):
+        disk_sat.device_table(jconv._binary_kernel_runs(kernels.circular_kernel(size)), pads, "cpu")
+    assert len(disk_sat.TABLES) == disk_sat.TABLES.size
+    assert disk_sat.device_table(runs, pads, "cpu") is not first  # evicted, built again
+
+
+def _integer_fields(shape, seed):
+    """Integer-valued fields whose row sums stay below 2^23: every prefix
+    is exact in float32 and the group sums run in the twin's order, so the
+    kernel must give the twin's bits."""
+    rng = np.random.default_rng(seed)
+    return np.round(rng.uniform(-2000, 2000, shape)).astype(np.float32)
+
+
+# (fields shape, disk size px, exclude centre, mode): a grid that is not a
+# multiple of the fused tile, the 67-px TPI disk on a 3-field stack, a
+# misaligned row width (no 16-byte loads), and the wide route's 667-px disk
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,centre,mode,route", [
+    ((1, 1000, 1337), 67, True, "same", "fused"),
+    ((3, 130, 250), 17, False, "valid", "fused"),
+    ((2, 75, 301), 67, True, "same", "fused"),
+    ((1, 900, 1440), 667, False, "same", "wide"),
+], ids=["ragged_1000x1337_67px", "stack3_valid_17px", "misaligned_rows_67px",
+        "wide_667px_900x1440"])
+def test_disk_sat_routes_bit_equal_on_cuda(shape, size, centre, mode, route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kernel = kernels.circular_kernel(size, exclude_center=centre)
+    runs = jconv._binary_kernel_runs(kernel[::-1, ::-1])
+    pads = ((jconv._same_pads(size), jconv._same_pads(size)) if mode == "same"
+            else ((0, 0), (0, 0)))
+    assert disk_sat.route(kernel.shape, len(disk_sat.run_table(runs)[0])) == route
+    x = torch.from_numpy(_integer_fields(shape, size)).cuda()
+    before = dict(disk_sat.ROUTE_LAUNCHES)
+    out = disk_sat.disk_conv_sat(x, kernel.shape, runs, pads)
+    torch.cuda.synchronize()
+    assert disk_sat.ROUTE_LAUNCHES[route] == before[route] + 1
+    plain = disk_sat.disk_conv_sat_plain(x, kernel.shape, runs, pads)
+    assert out.shape == plain.shape
+    assert torch.equal(out, plain)

@@ -1,6 +1,7 @@
 """The port stands apart from JAX, loads no h5py (the GPU machine has
 none) and builds nothing when it is imported."""
 
+import ast
 import pkgutil
 import shutil
 import subprocess
@@ -29,7 +30,8 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'h5py'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'h5py', 'topo_descriptors_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -52,7 +54,43 @@ def test_port_imports_without_jax():
             "topo_descriptors_tpu_torch.parallel.tiles",
             "topo_descriptors_tpu_torch.streaming",
             "topo_descriptors_tpu_torch.cli",
-            "topo_descriptors_tpu_torch.__main__"} <= set(names)
+            "topo_descriptors_tpu_torch.__main__",
+            "topo_descriptors_tpu_torch.config",
+            "topo_descriptors_tpu_torch.geo",
+            "topo_descriptors_tpu_torch.grid",
+            "topo_descriptors_tpu_torch.io.geotiff",
+            "topo_descriptors_tpu_torch.io.netcdf",
+            "topo_descriptors_tpu_torch.io.synthetic",
+            "topo_descriptors_tpu_torch.io.windowed",
+            "topo_descriptors_tpu_torch.kernels.disk",
+            "topo_descriptors_tpu_torch.kernels.gaussian",
+            "topo_descriptors_tpu_torch.kernels.sobel",
+            "topo_descriptors_tpu_torch.kernels.sx_geometry",
+            "topo_descriptors_tpu_torch.kernels.valley",
+            "topo_descriptors_tpu_torch.utils.timing"} <= set(names)
+
+
+def _imported_packages(path):
+    """Top-level package of every ``import`` and ``from ... import`` in
+    ``path``, at any depth (function-local imports included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("scope", ["package", "chip_smoke"])
+def test_no_import_of_the_jax_package(scope):
+    """The port keeps its own host layer: no module of the port and no line
+    of chip_smoke.py imports ``topo_descriptors_tpu`` or jax."""
+    paths = sorted(PORT.rglob("*.py")) if scope == "package" else [ROOT / "chip_smoke.py"]
+    bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
+           for path in paths for name, line in _imported_packages(path)
+           if name in ("topo_descriptors_tpu", "jax", "jaxlib")]
+    assert paths and not bad, bad
 
 
 def test_no_port_file_imports_jax():

@@ -22,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from topo_descriptors_tpu import grid as jgrid
+from topo_descriptors_tpu import io as jio
 from topo_descriptors_tpu import pipeline as jpipe
-from topo_descriptors_tpu.config import CFG
-from topo_descriptors_tpu.grid import fill_na
-from topo_descriptors_tpu.io import basodino_like_dem, read_raster
+from topo_descriptors_tpu.config import CFG as JCFG
 from topo_descriptors_tpu.parallel.tiles import TiledRunner as JaxTiledRunner
 from topo_descriptors_tpu_torch import pipeline as tpipe
+from topo_descriptors_tpu_torch.config import CFG
+from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na, read_raster
 from topo_descriptors_tpu_torch.parallel import TiledRunner
 
 TOL = {"TPI": dict(rtol=1e-5, atol=1e-3), "STD": dict(rtol=1e-5, atol=2e-2),
@@ -49,13 +51,24 @@ def one_intra_op_thread():
     torch.set_num_threads(saved)
 
 
-@pytest.fixture(scope="module")
-def dem_with_holes():
-    raster = basodino_like_dem(ny=90, nx=144, projected=True)
+def _with_holes(raster, fill):
     data = np.array(raster.data)
     data[10:13, 20:30] = np.nan
     data[50, 100:104] = np.nan
-    return fill_na(raster.with_data(data))
+    return fill(raster.with_data(data))
+
+
+@pytest.fixture(scope="module")
+def dem_with_holes():
+    """(ind_nans, filled DEM) built with the port's own host layer: the
+    port's drivers take only the port's ``Raster``."""
+    return _with_holes(basodino_like_dem(ny=90, nx=144, projected=True), fill_na)
+
+
+@pytest.fixture(scope="module")
+def jax_dem_with_holes():
+    """The same grid built with the JAX package's host layer, for its drivers."""
+    return _with_holes(jio.basodino_like_dem(ny=90, nx=144, projected=True), jgrid.fill_na)
 
 
 CROP = {"x": slice(680_000.0 + 30 * 20, 680_000.0 + 30 * 120),
@@ -104,21 +117,26 @@ def _assert_close(port, ref, refs):
 
 
 @pytest.mark.parametrize("run", list(RUNS))
-def test_driver_matches_jax(run, dem_with_holes, tmp_path, monkeypatch):
+def test_driver_matches_jax(run, dem_with_holes, jax_dem_with_holes, tmp_path, monkeypatch):
     ind_nans, dem = dem_with_holes
+    jind_nans, jdem = jax_dem_with_holes
+    np.testing.assert_array_equal(dem.data, jdem.data)
     driver, kwargs = RUNS[run]
-    if run == "ridge_streamed":  # both packages stream above this budget
+    if run == "ridge_streamed":  # both packages stream above this budget, each reads its CFG
         monkeypatch.setattr(CFG, "valley_bank_max_bytes", 1)
+        monkeypatch.setattr(JCFG, "valley_bank_max_bytes", 1)
     # like the JAX drivers, the Sx drivers take no ind_nans
     extra = {} if driver.startswith("compute_sx") else {"ind_nans": ind_nans}
+    jextra = {} if driver.startswith("compute_sx") else {"ind_nans": jind_nans}
     port_files = getattr(tpipe, driver)(
         dem, outdir=tmp_path / "port", device="cpu", **extra, **kwargs
     )
-    jax_files = getattr(jpipe, driver)(dem, outdir=tmp_path / "jax", **extra, **kwargs)
+    jax_files = getattr(jpipe, driver)(jdem, outdir=tmp_path / "jax", **jextra, **kwargs)
     assert [p.name for p in port_files] == [p.name for p in jax_files]
     refs = {}
     for pf, jf in zip(port_files, jax_files):
-        port, ref = read_raster(pf), read_raster(jf)
+        # each package reads the other's file
+        port, ref = jio.read_raster(pf), read_raster(jf)
         refs[ref.name] = ref
         assert port.name == ref.name and port.units == ref.units
         np.testing.assert_array_equal(port.grid.y, ref.grid.y)
@@ -230,7 +248,8 @@ def test_tiled_driver_matches_single_pass(run, dem_with_holes, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("driver", ["compute_dem", "compute_gradient"])
-def test_tiled_dem_and_gradient_match_jax_runner(driver, dem_with_holes, tmp_path):
+def test_tiled_dem_and_gradient_match_jax_runner(driver, dem_with_holes, jax_dem_with_holes,
+                                                  tmp_path):
     """Fault C3 of the reference: its tiled compute_dem and compute_gradient
     pass ``valid_shape=`` to TiledRunner.gaussian/.gradient, which take
     none, and raise TypeError. The port's run, held against the JAX
@@ -238,17 +257,18 @@ def test_tiled_dem_and_gradient_match_jax_runner(driver, dem_with_holes, tmp_pat
     from topo_descriptors_tpu import geo
 
     ind_nans, dem = dem_with_holes
+    _, jdem = jax_dem_with_holes
     files = getattr(tpipe, driver)(dem, [300, 2000], ind_nans=ind_nans, outdir=tmp_path,
                                    sharded=TiledRunner(32, device="cpu"), device="cpu")
-    sizes, res = geo.scale_to_pixel([300, 2000], dem)
+    sizes, res = geo.scale_to_pixel([300, 2000], jdem)
     jrunner = JaxTiledRunner(32)
-    data = np.asarray(dem.data, np.float32)
+    data = np.asarray(jdem.data, np.float32)
     refs = []
     for size in sizes:
         if driver == "compute_dem":
-            refs.append(jrunner.gaussian(data, float(size / CFG.scale_std)))
+            refs.append(jrunner.gaussian(data, float(size / JCFG.scale_std)))
         else:
-            refs.extend(jrunner.gradient(data, float(size / CFG.scale_std), res, 1.0))
+            refs.extend(jrunner.gradient(data, float(size / JCFG.scale_std), res, 1.0))
     assert len(files) == len(refs)
     seen = {}
     for path, ref in zip(files, refs):

@@ -18,22 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from topo_descriptors_tpu import io as jio
 from topo_descriptors_tpu import streaming as jstream
-from topo_descriptors_tpu.io import (
+from topo_descriptors_tpu_torch import streaming as tstream
+from topo_descriptors_tpu_torch.host import (
     DemWindowReader,
     RasterBandWriter,
     basodino_like_dem,
-    read_raster,
-    write_geotiff,
-    write_raster,
-)
-from topo_descriptors_tpu_torch import streaming as tstream
-from topo_descriptors_tpu_torch.host import (
     gaussian_radius,
+    read_raster,
     rotated_extent,
     scale_to_pixel,
     sx_offsets,
     sx_sweep_offsets,
+    write_geotiff,
+    write_raster,
 )
 
 TILE_ROWS = 16
@@ -114,7 +113,8 @@ def test_streamed_driver_matches_jax(call, source, dem_paths, dem_raster, tmp_pa
         assert reader.max_rows_read < reader.shape[0]
     assert [p.name for p in out] == [p.name for p in ref]
     for p, r in zip(out, ref):
-        port, jax_out = read_raster(p), read_raster(r)
+        # the files the port wrote, read by the JAX package, and the other way round
+        port, jax_out = jio.read_raster(p), read_raster(r)
         assert port.name == jax_out.name and port.units == jax_out.units
         assert port.data.shape == dem_raster.data.shape
         np.testing.assert_array_equal(np.isnan(port.data), np.isnan(jax_out.data))

@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from topo_descriptors_tpu.io import basodino_like_dem
 from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets
 from topo_descriptors_tpu.models import SuiteConfig as JaxSuiteConfig
 from topo_descriptors_tpu.models import TerrainSuite as JaxSuite
 from topo_descriptors_tpu_torch import pipeline as tpipe
+from topo_descriptors_tpu_torch.host import basodino_like_dem
 from topo_descriptors_tpu_torch.models import SuiteConfig, TerrainSuite
 
 TOL = {"tpi": dict(rtol=1e-5, atol=1e-3), "std": dict(rtol=1e-5, atol=2e-2),

@@ -25,6 +25,7 @@ from topo_descriptors_tpu import ops as jops
 from topo_descriptors_tpu.config import CFG
 from topo_descriptors_tpu.parallel.tiles import TiledRunner as JaxTiledRunner
 from topo_descriptors_tpu_torch import ops
+from topo_descriptors_tpu_torch.config import CFG as TCFG
 from topo_descriptors_tpu_torch.parallel import LockedReader, TiledRunner
 
 SX_TOL = dict(rtol=0, atol=2e-5)
@@ -144,9 +145,11 @@ def test_tiled_valley_ridge(dem_tiny, runner, jrunner, sigma):
 
 
 def test_tiled_valley_ridge_streamed_branch(dem_tiny, runner, jrunner, monkeypatch):
-    """A 1-byte bank budget sends every band down the streamed route."""
+    """A 1-byte bank budget sends every band down the streamed route, in
+    both packages: each reads its own CFG."""
     single = ops.valley_ridge(dem_tiny, 7, "ridge", [0, 0.2], device="cpu")
     monkeypatch.setattr(CFG, "valley_bank_max_bytes", 1)
+    monkeypatch.setattr(TCFG, "valley_bank_max_bytes", 1)
     port = runner.valley_ridge(dem_tiny, 7, "ridge", (0, 0.2))
     _valley_agree(port, jrunner.valley_ridge(dem_tiny, 7, "ridge", (0, 0.2)), 3e-3)
     _valley_agree(port, single, 3e-3)

@@ -21,7 +21,7 @@ import torch
 from scipy import ndimage, signal
 
 from oracles import _valley_ridge_oracle
-from topo_descriptors_tpu.config import CFG
+from topo_descriptors_tpu_torch.config import CFG  # the port reads its own CFG
 from topo_descriptors_tpu.kernels.valley import rotate_kernels, rotated_extent, valley_kernels
 from topo_descriptors_tpu.ops import dft_conv as jdft
 from topo_descriptors_tpu.ops import spline_rotate as jrot

@@ -40,6 +40,35 @@ static __device__ __forceinline__ float sx_max_ratio(
   return acc;
 }
 
+// The shared-memory variant of sx_max_ratio, for kR pixels of one thread
+// at once (sx_block.cu's halo tile). `tile` holds the DEM around the block
+// with NaN outside the grid, so pixel r reads tile[at[r] + soff[k]] where
+// sx_max_ratio reads dem[y + oy_k, x + ox_k] (or NaN); `group_ptr` and
+// `inv` are as above. Each pixel sees the same operations in the same order
+// as in sx_max_ratio, so the two agree bit for bit.
+template <int kR>
+static __device__ __forceinline__ void sx_max_ratio_tile(
+    const float* tile, const int* soff, const int* group_ptr, const float* inv,
+    int n_groups, const int (&at)[kR], const float (&base)[kR],
+    float (&acc)[kR]) {
+#pragma unroll
+  for (int r = 0; r < kR; ++r) acc[r] = -INFINITY;
+  for (int g = 0; g < n_groups; ++g) {
+    float best[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) best[r] = NAN;
+    const int k1 = group_ptr[g + 1];
+    for (int k = group_ptr[g]; k < k1; ++k) {
+      const int s = soff[k];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) best[r] = fmaxf(best[r], tile[at[r] + s]);
+    }
+    const float ig = inv[g];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[r] = fmaxf(acc[r], (best[r] - base[r]) * ig);
+  }
+}
+
 // atan in degrees; no valid candidate (-inf) -> NaN, as the reference's
 // np.nanmax of an all-NaN slice.
 static __device__ __forceinline__ float sx_degrees(float max_ratio) {

@@ -45,6 +45,36 @@ def upload(array: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(device, non_blocking=True)
 
 
+class TableCache:
+    """The last ``size`` device tables of a kernel wrapper (run tables, ray
+    tables), keyed on the table's contents and the device, so that a
+    repeated call uploads nothing. ``builds`` counts the misses: each one
+    builds and uploads its tables once."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self.builds = 0
+        self._tables: dict = {}
+
+    def get(self, key, build):
+        """The cached value of ``key``, or ``build()``'s, kept in place of
+        the oldest entry."""
+        value = self._tables.get(key)
+        if value is None:
+            value = build()
+            self.builds += 1
+            while len(self._tables) >= self.size:
+                self._tables.pop(next(iter(self._tables)))
+            self._tables[key] = value
+        return value
+
+    def __len__(self) -> int:
+        return len(self._tables)
+
+    def clear(self) -> None:
+        self._tables.clear()
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor; other devices raise."""
     if t.device.type == "cuda":

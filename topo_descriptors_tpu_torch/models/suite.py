@@ -20,9 +20,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets
 from topo_descriptors_tpu_torch import ops
 from topo_descriptors_tpu_torch.device import as_field, resolve_device
+from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,9 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from topo_descriptors_tpu.config import CFG
-from topo_descriptors_tpu.kernels.gaussian import gaussian_kernel1d
+from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import upload
+from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_kernel1d
 from topo_descriptors_tpu_torch.ops.cuda import disk_sat
 
 

@@ -31,8 +31,12 @@ CSRC = _PACKAGE / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel: build_log
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# the most dynamic shared memory one block may use on sm_90 (227 KB); the
+# tiled kernels' wrappers route by it
+SMEM_PER_BLOCK = 232_448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,10 +44,17 @@ _SIGNATURES = {
     # x, p, out, table, n_groups, n_fields, h, w, ly, lx, hp, wq, h_out,
     # w_out, stream
     "disk_sat_forward": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
+    # x, carry, out, table, n_groups, table_len, n_fields, h, w, ly, lx, hp,
+    # wq, kh, kw, h_out, w_out, smem_bytes, stream
+    "disk_sat_fused_forward": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
     # dem, offsets, group_ptr, inv, n_groups, out, h, w, border, height,
     # zero_border, stream
     "sx_block_forward": (_P, _P, _P, _P, _I, _P, _I, _I, _I,
                          ctypes.c_float, _I, _P),
+    # dem, offsets, group_ptr, inv, n_rays, n_groups, out, h, w, oy0, ox0,
+    # sh, sw, border, height, zero_border, smem_bytes, vec, stream
+    "sx_block_tile_forward": (_P, _P, _P, _P, _I, _I, _P) + (_I,) * 7
+                             + (ctypes.c_float, _I, _I, _I, _P),
     # dem, offsets, group_ptr, inv, az_ptr, n_az, out, h, w, border, height,
     # zero_border, stream
     "sx_sweep_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
@@ -55,6 +66,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+build_log = ""  # what nvcc printed in that build (ptxas resource usage)
 
 
 def build_dir() -> Path:
@@ -94,7 +106,7 @@ def library_path() -> Path:
 
 def _compile(target: Path) -> None:
     """One ``nvcc -c`` per source, all started together, then one link."""
-    global build_seconds
+    global build_seconds, build_log
     target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     start = time.perf_counter()
@@ -104,10 +116,11 @@ def _compile(target: Path) -> None:
                 for src, obj in zip(_sources(), objects)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in cmds]
-        failed = []
+        failed, log = [], []
         try:
             for cmd, proc in zip(cmds, procs):
                 out, _ = proc.communicate()
+                log.append(out)
                 if proc.returncode != 0:
                     failed.append(f"{' '.join(cmd)} ({proc.returncode})\n{out}")
         finally:
@@ -127,6 +140,7 @@ def _compile(target: Path) -> None:
             )
         os.replace(library, target)  # atomic: a concurrent build never sees half a file
     build_seconds = time.perf_counter() - start
+    build_log = "".join(log)
 
 
 def library() -> ctypes.CDLL:

@@ -1,16 +1,20 @@
 """Disk ({0,1}-kernel) convolution through row prefix sums.
 
 Replaces ``topo_descriptors_tpu/ops/pallas/disk_sat.py::_sat_kernel`` (and
-its launcher ``disk_conv_sat_pallas``). The CUDA kernel is
-``csrc/disk_sat.cu``; its header says what bounds it on the H100 (bytes:
-2 x runs prefix reads per pixel) and what its two-launch design does about
-that. :func:`disk_conv_sat_plain` is the same algorithm in plain PyTorch —
-the transcription of the XLA twin ``ops/conv.py::_conv2d_sat``.
+its launcher ``disk_conv_sat_pallas``). The CUDA kernels are in
+``csrc/disk_sat.cu``; its header says what bounds them on the H100 (load
+instructions: 2 x runs prefix reads per pixel) and what the two routes do
+about that: ``"fused"`` stages a tile of the field in shared memory and
+scans it there, ``"wide"`` (kernels whose tile does not fit) keeps the
+full prefix plane in device memory. :func:`route` chooses between them
+from the kernel's shape and run table and the shared-memory limit alone.
+:func:`disk_conv_sat_plain` is the same algorithm in plain PyTorch — the
+transcription of the XLA twin ``ops/conv.py::_conv2d_sat``.
 
 :func:`disk_conv_sat` routes by the tensor: CPU tensors take the plain
 twin, CUDA tensors the kernel, anything else raises. ``LAUNCHES`` counts
-the kernel's CUDA calls (one per convolution: a row scan and a run-sum
-pass).
+the convolutions run on the card and ``ROUTE_LAUNCHES`` splits them by
+route; ``TABLES`` keeps the run tables on their device.
 """
 
 from __future__ import annotations
@@ -19,10 +23,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from topo_descriptors_tpu_torch.device import on_cuda, upload
+from topo_descriptors_tpu_torch.device import TableCache, on_cuda, upload
 from topo_descriptors_tpu_torch.ops.cuda import _build
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"fused": 0, "wide": 0}
+TABLES = TableCache()
+
+# csrc/disk_sat.cu's output tile (kTileH x kTileW)
+TILE_H, TILE_W = 32, 128
+# widest kernel whose staged rows a warp scans in registers (kSegMax = 10)
+SCAN_MAX_KW = 32 * 10 - TILE_W + 1
 
 _INT_MAX = 2**31 - 1
 
@@ -50,6 +61,35 @@ def run_table(runs):
         [np.asarray(head, np.int32).reshape(-1), np.asarray(rows, np.int32)]
     )
     return table, len(groups)
+
+
+def fused_smem_bytes(kshape, table_len: int) -> int:
+    """Dynamic shared memory of the fused route's block: the run table
+    (padded to 16 bytes) and (TILE_H + kh - 1) staged rows of TILE_W + kw
+    prefix values."""
+    kh, kw = kshape
+    return 4 * (-(-table_len // 4) * 4 + (TILE_H + kh - 1) * (TILE_W + kw))
+
+
+def route(kshape, table_len: int) -> str:
+    """``"fused"`` when the fused tile fits in shared memory (and its rows
+    in the scan's registers, kw <= 193), else ``"wide"``; the grid's size
+    plays no part."""
+    smem = fused_smem_bytes(kshape, table_len)
+    fits = smem <= _build.SMEM_PER_BLOCK and kshape[1] <= SCAN_MAX_KW
+    return "fused" if fits else "wide"
+
+
+def device_table(runs, pads, device):
+    """``(table tensor on device, n_groups, table_len)``, built and
+    uploaded once per (runs, pads, device) while it stays in ``TABLES``."""
+    key = (tuple(map(tuple, runs)), tuple(map(tuple, pads)), torch.device(device))
+
+    def build():
+        table, n_groups = run_table(runs)
+        return upload(table, device), n_groups, len(table)
+
+    return TABLES.get(key, build)
 
 
 def _out_shape(xs, kshape, pads):
@@ -93,6 +133,7 @@ def disk_conv_sat(xs: torch.Tensor, kshape, runs, pads) -> torch.Tensor:
             f"{xs.dtype} {tuple(xs.shape)} contiguous={xs.is_contiguous()}"
         )
     (ly, hy), (lx, hx) = pads
+    kh, kw = kshape
     b, h, w = xs.shape
     h_out, w_out = _out_shape(xs, kshape, pads)
     hp, wq = h + ly + hy, w + lx + hx + 1
@@ -101,16 +142,26 @@ def disk_conv_sat(xs: torch.Tensor, kshape, runs, pads) -> torch.Tensor:
     if b * hp > _INT_MAX or b > 65535 or max(hp, wq) > _INT_MAX:
         raise ValueError(f"field stack {tuple(xs.shape)} exceeds the launch grid")
     out = torch.empty((b, h_out, w_out), dtype=torch.float32, device=xs.device)
-    scratch = torch.empty((b, hp, wq), dtype=torch.float32, device=xs.device)
-    table, n_groups = run_table(runs)
-    table = upload(table, xs.device)
+    table, n_groups, table_len = device_table(runs, pads, xs.device)
+    which = route(kshape, table_len)
     lib = _build.library()
     with torch.cuda.device(xs.device):
-        err = lib.disk_sat_forward(
-            xs.data_ptr(), scratch.data_ptr(), out.data_ptr(), table.data_ptr(),
-            n_groups, b, h, w, ly, lx, hp, wq, h_out, w_out,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "disk_sat")
+        stream = torch.cuda.current_stream().cuda_stream
+        if which == "fused":
+            carry = torch.empty((b, hp, -(-w_out // TILE_W)), dtype=torch.float32,
+                                device=xs.device)
+            err = lib.disk_sat_fused_forward(
+                xs.data_ptr(), carry.data_ptr(), out.data_ptr(), table.data_ptr(),
+                n_groups, table_len, b, h, w, ly, lx, hp, wq, kh, kw, h_out, w_out,
+                fused_smem_bytes(kshape, table_len), stream,
+            )
+        else:
+            scratch = torch.empty((b, hp, wq), dtype=torch.float32, device=xs.device)
+            err = lib.disk_sat_forward(
+                xs.data_ptr(), scratch.data_ptr(), out.data_ptr(), table.data_ptr(),
+                n_groups, b, h, w, ly, lx, hp, wq, h_out, w_out, stream,
+            )
+    _build.check(err, f"disk_sat ({which})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[which] += 1
     return out

@@ -6,8 +6,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from topo_descriptors_tpu.kernels.sobel import sobel_kernel
 from topo_descriptors_tpu_torch.device import as_field
+from topo_descriptors_tpu_torch.kernels.sobel import sobel_kernel
 from topo_descriptors_tpu_torch.ops.conv import convolve_reflect, gaussian_filter, gradient_axis
 
 

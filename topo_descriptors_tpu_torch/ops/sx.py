@@ -5,8 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topo_descriptors_tpu.kernels.sx_geometry import sx_dedupe, sx_sweep_dedupe
 from topo_descriptors_tpu_torch.device import as_field, on_cuda
+from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_dedupe, sx_sweep_dedupe
 from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep as cuda_sweep
 
 

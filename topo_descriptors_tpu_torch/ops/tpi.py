@@ -7,8 +7,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from topo_descriptors_tpu.kernels.disk import circular_kernel
 from topo_descriptors_tpu_torch.device import as_field
+from topo_descriptors_tpu_torch.kernels.disk import circular_kernel
 from topo_descriptors_tpu_torch.ops.conv import (
     conv2d_same,
     edge_count_plane_device,

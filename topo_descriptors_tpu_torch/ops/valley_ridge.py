@@ -15,14 +15,14 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from topo_descriptors_tpu.config import CFG
-from topo_descriptors_tpu.kernels.valley import (
+from topo_descriptors_tpu_torch.config import CFG
+from topo_descriptors_tpu_torch.device import as_field, upload
+from topo_descriptors_tpu_torch.kernels.valley import (
     ridge_kernels,
     rotated_extent,
     rotated_kernel_bank,
     valley_kernels,
 )
-from topo_descriptors_tpu_torch.device import as_field, upload
 from topo_descriptors_tpu_torch.ops.conv import _fft_shape, conv2d_bank_rowchan, gaussian_filter
 from topo_descriptors_tpu_torch.ops.dft_conv import conv_bank, field_spectrum, get_plan, prefer_dft_matmul
 from topo_descriptors_tpu_torch.ops.spline_rotate import (

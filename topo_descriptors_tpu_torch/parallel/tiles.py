@@ -35,11 +35,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from topo_descriptors_tpu.config import CFG
-from topo_descriptors_tpu.kernels.gaussian import gaussian_radius
-from topo_descriptors_tpu.kernels.valley import rotated_extent
 from topo_descriptors_tpu_torch import ops
+from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import resolve_device
+from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_radius
+from topo_descriptors_tpu_torch.kernels.valley import rotated_extent
 from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes, prepare_valley_bank
 
 logger = logging.getLogger(__name__)
@@ -186,7 +186,7 @@ class TiledRunner:
 
     ``dem`` may be a host ndarray or a *window reader* (``.shape`` and
     contiguous row slicing, e.g.
-    :class:`~topo_descriptors_tpu.io.windowed.DemWindowReader`), in which
+    :class:`~topo_descriptors_tpu_torch.io.windowed.DemWindowReader`), in which
     case only one halo-extended band is resident at a time. Every op takes
     an optional ``sink(start_row, band)`` (or a list of them for ops with
     several outputs); bands are then handed over in order as they finish

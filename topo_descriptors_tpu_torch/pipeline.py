@@ -23,15 +23,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from topo_descriptors_tpu import geo
-from topo_descriptors_tpu.config import CFG
-from topo_descriptors_tpu.grid import Raster, check_dem
-from topo_descriptors_tpu.io.netcdf import to_netcdf
-from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
-from topo_descriptors_tpu.utils.timing import timer
-from topo_descriptors_tpu_torch import ops
+from topo_descriptors_tpu_torch import geo, ops
+from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import as_field, resolve_device
+from topo_descriptors_tpu_torch.grid import Raster, check_dem
+from topo_descriptors_tpu_torch.io.netcdf import to_netcdf
+from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
 from topo_descriptors_tpu_torch.parallel.tiles import TiledRunner
+from topo_descriptors_tpu_torch.utils.timing import timer
 
 logger = logging.getLogger(__name__)
 

@@ -6,14 +6,14 @@ for grids larger than host memory; the single-device half of
 ``topo_descriptors_tpu.streaming``. Every driver composes three
 bounded-memory pieces:
 
-* :class:`~topo_descriptors_tpu.io.windowed.DemWindowReader`: windowed
+* :class:`~topo_descriptors_tpu_torch.io.windowed.DemWindowReader`: windowed
   ingest (GeoTIFF strips/tiles or HDF5 hyperslabs) with the reference's
   float32 cast, min-elevation mask and nearest-in-x NaN fill applied per
   window;
 * :class:`~topo_descriptors_tpu_torch.parallel.TiledRunner`: banded,
   halo-overlapped execution on ``device`` (default ``"cuda"``, which
   raises where CUDA is missing);
-* :class:`~topo_descriptors_tpu.io.netcdf.RasterBandWriter`: NetCDF4 output
+* :class:`~topo_descriptors_tpu_torch.io.netcdf.RasterBandWriter`: NetCDF4 output
   appended band by band into a ``.partial`` file, renamed onto
   ``topo_<NAME>.nc`` when it closes.
 
@@ -37,13 +37,12 @@ from typing import Optional, Union
 
 import numpy as np
 
-from topo_descriptors_tpu import geo
-from topo_descriptors_tpu.config import CFG
-from topo_descriptors_tpu.grid import check_dem
-from topo_descriptors_tpu.io.netcdf import RasterBandWriter
-from topo_descriptors_tpu.io.windowed import DemWindowReader
-from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
-from topo_descriptors_tpu.utils.timing import timer
+from topo_descriptors_tpu_torch import geo
+from topo_descriptors_tpu_torch.config import CFG
+from topo_descriptors_tpu_torch.grid import check_dem
+from topo_descriptors_tpu_torch.io.netcdf import RasterBandWriter
+from topo_descriptors_tpu_torch.io.windowed import DemWindowReader
+from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
 from topo_descriptors_tpu_torch.parallel.tiles import LockedReader, TiledRunner
 from topo_descriptors_tpu_torch.pipeline import (
     _as_list,
@@ -55,6 +54,7 @@ from topo_descriptors_tpu_torch.pipeline import (
     _tpi_name,
     _valley_ridge_names,
 )
+from topo_descriptors_tpu_torch.utils.timing import timer
 
 logger = logging.getLogger(__name__)
 

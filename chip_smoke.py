@@ -14,20 +14,25 @@ Phases, each printing its lines:
    the main path's disks and the 20 km (667 px) disk of the wide route,
    the Sx kernel at 500 m and 2000 m (every side of the one-sided halo)
    and with a 10 km fan of the global route, also on a 50 x 61 grid
-   smaller than the 2000 m halo; the Sx sweep and fan kernels also against
-   per-azimuth ``sx_block``, bit for bit; every route must have run;
+   smaller than the 2000 m halo; the Sx sweep and fan kernels on all four
+   grids (36-azimuth fans, north-up and without the zero border on the
+   1000 x 1337 grid, the radius_min and distance-0 fans, a 10 km fan of
+   the global route), also against per-azimuth ``sx_block``, bit for bit;
+   every route of every kernel must have run;
 4. run the port's drivers on the card (TPI fused and smoothed, TPI+STD,
    Sx at 500 m and 2000 m, the 36-azimuth Sx sweep at 2000 m and 200 m)
    and ``ops.sx_sweep`` with the sweep kernel that ``auto`` does not pick,
-   check that every kernel was launched (the disk and Sx kernels on their
-   shared-memory routes), count the launches of ``compute_tpi(scales=
+   check that every kernel was launched (all four on their shared-memory
+   routes), count the launches of ``compute_tpi(scales=
    [2000])`` and ``compute_sx(radius=500)`` alone, and compare every
    output with the same calls run on the plain twins;
 5. time each kernel against its twin (CUDA events, median of 20; a twin
    that takes over a second per call, median of 3) beside its bound (the
    larger of its operations over the float32 peak and its bytes over the
    HBM rate) and, for the disk kernel, the one PyTorch call that computes
-   the same function (``F.conv2d`` in full float32);
+   the same function (``F.conv2d`` in full float32); the 36-azimuth fans
+   through both sweep kernels, each with its route, bound and share,
+   beside the per-azimuth ``sx_block`` loop and the twin;
 6. run the third slice on the 900 x 1440 grid with NaN holes, at the
    reference's scales: ``compute_dem``, ``compute_gradient`` (both checked
    against the same drivers on the CPU), ``compute_valley_ridge`` in valley
@@ -41,7 +46,8 @@ Phases, each printing its lines:
    one, both with holes, as deflate strip GeoTIFFs; stream every family
    from them through ``streaming`` in 4 bands (``TiledRunner``) and hold
    each output against the single-pass driver on the same filled grid
-   (Sx bit for bit); check that each band launched its kernel, that no
+   (Sx bit for bit); check that each band launched its kernel (the fan's
+   on its shared-memory route), that no
    read exceeded one band and its halos, that the streamed 8192 x 8192
    TPI+STD peaks below 60% of the single pass's device memory, that
    pipelined and serial band loops give the same bits, that a failed
@@ -109,7 +115,8 @@ def build():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("row_scanILi1E", "row_scanILi128E", "run_sum",
                                        "disk_sat_tile", "sx_block_tile", "sx_block_kernel",
-                                       "sx_sweep_kernel", "sx_fan_kernel")
+                                       "sx_sweep_kernel", "sx_fan_kernel", "sx_sweep_tile",
+                                       "sx_fan_tile")
                            if k in line), line.split("'")[1][:40])
         elif kernel and ("registers" in line or "spill" in line):
             print(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
@@ -220,43 +227,62 @@ def check_sx(name, dem, o, d, b, grid):
 
 
 def sweep_cases(grid):
-    """(name, offsets, distances, border) of the deduplicated fans checked
-    on ``grid``: the 36-azimuth sweep at both radii of BASELINE.json
-    configs[3], a ragged radius_min fan and the distance-0 fan at 900x1440;
-    the 36-azimuth sweep at 500 m at 8192x8192."""
+    """(name, offsets, distances, border, zero_border) of the deduplicated
+    fans checked on ``grid``: the 36-azimuth sweep at both radii of
+    BASELINE.json configs[3], a ragged radius_min fan, the distance-0 fan
+    and a 10 km fan whose 45-degree box does not fit in shared memory (the
+    global route) at 900x1440; the 36-azimuth sweep at 500 m at 8192x8192;
+    at 1000x1337 (no tile multiple) the 2000 m sweep north-up (dy < 0) and
+    without the zero border, and the 500 m one; at 50x61 (smaller than the
+    2000 m halo) the 2000 m sweep and the 10 km fan."""
     from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
 
-    if grid == "8192x8192":
-        cases = [("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0)]
-    else:
-        cases = [("36az_r200", SWEEP_AZIMUTHS, 200.0, 0.0),
-                 ("36az_r2000", SWEEP_AZIMUTHS, 2000.0, 0.0),
-                 ("r300_radius_min100", (10, 200, 355), 300.0, 100.0),
-                 ("r250_distance0", (225, 45), 250.0, 0.0)]
-    for name, azimuths, radius, rmin in cases:
-        o, d, b = sx_sweep_offsets(azimuths, radius, 30.0, 30.0, radius_min=rmin)
+    # (name, azimuths, radius, radius_min, dy, zero_border)
+    cases = {
+        "900x1440": [("36az_r200", SWEEP_AZIMUTHS, 200.0, 0.0, 30.0, True),
+                     ("36az_r2000", SWEEP_AZIMUTHS, 2000.0, 0.0, 30.0, True),
+                     ("r300_radius_min100", (10, 200, 355), 300.0, 100.0, 30.0, True),
+                     ("r250_distance0", (225, 45), 250.0, 0.0, 30.0, True),
+                     ("r10000_global", (0, 45), 10_000.0, 0.0, 30.0, True)],
+        "8192x8192": [("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0, 30.0, True)],
+        "1000x1337": [("36az_r2000_northup_nozero", SWEEP_AZIMUTHS, 2000.0, 0.0, -30.0, False),
+                      ("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0, 30.0, True)],
+        "50x61": [("36az_r2000", SWEEP_AZIMUTHS, 2000.0, 0.0, 30.0, True),
+                  ("r10000_global", (0, 45), 10_000.0, 0.0, 30.0, True)],
+    }[grid]
+    for name, azimuths, radius, rmin, dy, zero_border in cases:
+        o, d, b = sx_sweep_offsets(azimuths, radius, 30.0, dy, radius_min=rmin)
         o, d = sx_sweep_dedupe(o, d)
-        yield name, o, d, b
+        yield name, o, d, b, zero_border
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def check_sweep(name, dem, o, d, b, grid):
+def sweep_routes(o, d, b, device):
+    """The route each fan kernel takes for this fan, from its bytes."""
+    from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
+
+    t = sx_sweep.device_tables(o, d, b, device)
+    return {"sx_sweep": sx_sweep.route(t.sweep_smem), "sx_fan": sx_sweep.route(t.fan_smem)}
+
+
+def check_sweep(name, dem, o, d, b, zero_border, grid):
     """Both fan kernels against the twin, plane by plane (the (36, 8192,
     8192) stacks are 9.7 GB each), and bit for bit against sx_block on the
     azimuth's table: the three kernels share the per-pixel code and the
     1/distance groups."""
     from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
 
-    outs = {"sx_sweep": sx_sweep.sx_sweep(dem, o, d, b, 10.0),
-            "sx_fan": sx_sweep.sx_fan(dem, o, d, b, 10.0)}
+    routes = sweep_routes(o, d, b, dem.device)
+    outs = {"sx_sweep": sx_sweep.sx_sweep(dem, o, d, b, 10.0, zero_border),
+            "sx_fan": sx_sweep.sx_fan(dem, o, d, b, 10.0, zero_border)}
     torch.cuda.synchronize()
     errs = dict.fromkeys(outs, 0.0)
     for a in range(len(o)):
-        ref = sx_sweep.sx_sweep_plain(dem, o[a : a + 1], d[a : a + 1], b, 10.0)[0]
-        one = sx_block.sx_block(dem, o[a], d[a], b, 10.0)  # pad rows: NaN, dropped
+        ref = sx_sweep.sx_sweep_plain(dem, o[a : a + 1], d[a : a + 1], b, 10.0, zero_border)[0]
+        one = sx_block.sx_block(dem, o[a], d[a], b, 10.0, zero_border)  # pad rows: NaN, dropped
         for kernel, out in outs.items():
             check(torch.equal(torch.isnan(out[a]), torch.isnan(ref)),
                   f"{kernel} {name} {grid} azimuth {a}: NaN positions differ")
@@ -264,7 +290,8 @@ def check_sweep(name, dem, o, d, b, grid):
             check(same_bits(out[a], one),
                   f"{kernel} {name} {grid} azimuth {a}: not bit-equal to sx_block")
     n_rays = int((~np.isnan(d)).sum())
-    print(f"[parity] sx_sweep/sx_fan {name} {grid} A={len(o)} rays={n_rays} border={b}: "
+    print(f"[parity] sx_sweep/sx_fan {name} {grid} A={len(o)} rays={n_rays} border={b} "
+          f"zero_border={zero_border} ({routes['sx_sweep']}/{routes['sx_fan']} route): "
           f"max|kernel-twin| {errs['sx_sweep']:.6g} / {errs['sx_fan']:.6g} deg "
           f"(tol {SX_ATOL}), NaN positions equal, every plane bit-equal to sx_block")
     for kernel, err in errs.items():
@@ -296,7 +323,8 @@ def reset_launches():
 
     disk_sat.LAUNCHES = sx_block.LAUNCHES = 0
     sx_sweep.LAUNCHES.update(sx_sweep=0, sx_fan=0)
-    for routes in (disk_sat.ROUTE_LAUNCHES, sx_block.ROUTE_LAUNCHES):
+    for routes in (disk_sat.ROUTE_LAUNCHES, sx_block.ROUTE_LAUNCHES,
+                   *sx_sweep.ROUTE_LAUNCHES.values()):
         routes.update(dict.fromkeys(routes, 0))
 
 
@@ -307,10 +335,11 @@ def read_launches():
 
 
 def read_route_launches():
-    """Launches per route of the two kernels that have two."""
-    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block
+    """Launches per route of each kernel."""
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat, sx_block, sx_sweep
 
-    return {"disk_sat": dict(disk_sat.ROUTE_LAUNCHES), "sx_block": dict(sx_block.ROUTE_LAUNCHES)}
+    return {"disk_sat": dict(disk_sat.ROUTE_LAUNCHES), "sx_block": dict(sx_block.ROUTE_LAUNCHES),
+            **{k: dict(v) for k, v in sx_sweep.ROUTE_LAUNCHES.items()}}
 
 
 @contextlib.contextmanager
@@ -625,11 +654,13 @@ def slow_median_ms(fn):
 
 def time_sweeps(grids, smi_line):
     """The 36-azimuth fan at 900x1440 (r = 200 m and 2000 m) and 8192x8192
-    (r = 500 m): both fan kernels, the per-azimuth sx_block loop (the
-    'pallas' route) and the twin, on the same deduplicated tables."""
+    (r = 500 m): both fan kernels with their routes, bound and share of
+    bound, the per-azimuth sx_block loop (``ops.sx_sweep(method='pallas')``,
+    each plane written into one output) and the twin, on the same
+    deduplicated tables; then ``ops.sx_sweep`` as ``auto`` routes it."""
     from topo_descriptors_tpu_torch import ops
     from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
-    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+    from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
 
     times = {}
     for grid, radius in (("900x1440", 200.0), ("900x1440", 2000.0), ("8192x8192", 500.0)):
@@ -639,22 +670,24 @@ def time_sweeps(grids, smi_line):
         mpix_az = dem.numel() * len(o) / 1e6
         case = f"{grid} r{int(radius)}"
         work = sx_work(dem.shape, o, d, b)
-        times[("bound", case)] = bound(*work)
-        print(f"[time] Sx sweep 36 az {case}: bound {times[('bound', case)][0]:.4f} ms "
-              f"({times[('bound', case)][1]}; {work[0]:.4g} ops, {work[1]:.4g} bytes); "
-              f"library call: none (no single PyTorch call computes Sx)")
+        t_bound, bound_by = times[("bound", case)] = bound(*work)
+        routes = sweep_routes(o, d, b, dem.device)
+        print(f"[time] Sx sweep 36 az {case}: bound {t_bound:.4f} ms ({bound_by}; {work[0]:.4g} ops, "
+              f"{work[1]:.4g} bytes); library call: none (no single PyTorch call computes Sx)")
         rows = {
             "sx_sweep": lambda: sx_sweep.sx_sweep(dem, o, d, b, 10.0),
             "sx_fan": lambda: sx_sweep.sx_fan(dem, o, d, b, 10.0),
-            "pallas loop": lambda: torch.stack(
-                [sx_block.sx_block(dem, o[a], d[a], b, 10.0) for a in range(len(o))]),
+            "per-azimuth loop": lambda: ops.sx_sweep(dem, o, d, b, method="pallas",
+                                                     device=dem.device),
             "twin": lambda: sx_sweep.sx_sweep_plain(dem, o, d, b, 10.0),
             "ops.sx_sweep auto": lambda: ops.sx_sweep(dem, o, d, b, device=dem.device),
         }
         for label, fn in rows.items():
             ms, reps = slow_median_ms(fn)
             times[(label, case)] = ms
-            print(f"[time] Sx sweep 36 az {case} (rays {int((~np.isnan(d)).sum())}) {label}: "
+            kernel = (f" ({routes[label]} route), bound {t_bound:.4f} ms, share of bound "
+                      f"{t_bound / ms:.4f}" if label in routes else "")
+            print(f"[time] Sx sweep 36 az {case} (rays {int((~np.isnan(d)).sum())}) {label}{kernel}: "
                   f"{ms:.4f} ms ({mpix_az / ms * 1e3:.1f} Mpixel*azimuth/s, median of {reps}) "
                   f"on {smi_line}")
     return times
@@ -1145,7 +1178,8 @@ def stream_drivers(path, calls, use_h5py, tmp, prefix, tile_rows, pipeline=True,
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - start
                     launches = read_launches()
-                records.append(dict(wall=wall, launches=launches, rows=reader.max_rows_read,
+                records.append(dict(wall=wall, launches=launches, routes=read_route_launches(),
+                                    rows=reader.max_rows_read,
                                     halo=band_halo(driver, kwargs, reader), busy=busy(),
                                     n_rows=reader.shape[0]))
             if use_h5py:
@@ -1155,7 +1189,8 @@ def stream_drivers(path, calls, use_h5py, tmp, prefix, tile_rows, pipeline=True,
 
 def check_bands(label, driver, kwargs, rec, tile_rows, auto_kernel):
     """Out of core in fact: no read above one band and both halos, and the
-    family's kernel launched at least once per band."""
+    family's kernel launched at least once per band (a fan kernel on its
+    tile route)."""
     bound = min(rec["n_rows"], tile_rows + 2 * rec["halo"])
     n_bands = -(-rec["n_rows"] // tile_rows)
     kernel = band_kernel(driver, kwargs, auto_kernel)
@@ -1165,6 +1200,9 @@ def check_bands(label, driver, kwargs, rec, tile_rows, auto_kernel):
     if kernel is not None:
         check(rec["launches"][kernel] >= n_bands,
               f"{label}: {kernel} launched {rec['launches'][kernel]} times for {n_bands} bands")
+    if kernel in ("sx_sweep", "sx_fan"):
+        check(rec["routes"][kernel]["tile"] >= n_bands,
+              f"{label}: {kernel} routes {rec['routes'][kernel]} for {n_bands} bands")
 
 
 def compare_to_single(label, out, call, ref, ref_call):
@@ -1424,10 +1462,9 @@ def main() -> int:
                 errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
         for case in sx_cases(grid):
             errs["sx_block"] = max(errs["sx_block"], check_sx(case[0], dem, *case[1:], grid))
-        if grid in grids:
-            for case in sweep_cases(grid):
-                for kernel, err in check_sweep(case[0], dem, *case[1:], grid).items():
-                    errs[kernel] = max(errs[kernel], err)
+        for case in sweep_cases(grid):
+            for kernel, err in check_sweep(case[0], dem, *case[1:], grid).items():
+                errs[kernel] = max(errs[kernel], err)
     routes = read_route_launches()
     print(f"[parity] done at {time.perf_counter() - t0:.1f} s; launches per route {routes}")
     for kernel, counts in routes.items():
@@ -1453,8 +1490,10 @@ def main() -> int:
           f"auto routes the sweep to {auto_kernel}")
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
     check(launches[auto_kernel] >= 2, f"compute_sx_sweep did not launch {auto_kernel}")
-    check(main_routes["disk_sat"]["fused"] > 0 and main_routes["sx_block"]["tile"] > 0,
-          f"the main path missed the fused disk or the Sx tile route: {main_routes}")
+    other_kernel = {"pallas_fan": "sx_fan", "pallas_sweep": "sx_sweep"}[other_method]
+    check(main_routes["disk_sat"]["fused"] > 0 and main_routes["sx_block"]["tile"] > 0
+          and main_routes[auto_kernel]["tile"] >= 2 and main_routes[other_kernel]["tile"] > 0,
+          f"the main path missed a shared-memory route: {main_routes}")
     per_call = {}
     for driver, kwargs in (("compute_tpi", dict(scales=[2000], ind_nans=ind_nans)),
                            ("compute_sx", dict(azimuth=0, radius=500))):

@@ -8,11 +8,19 @@ tolerances of tests/test_torch_pipeline.py (Sx within 2e-5 degrees). The
 port reads through a ``DemWindowReader`` whose ``max_rows_read`` must stay
 within one band plus both halos.
 
+The JAX reference runs with its own serial band loop
+(``TiledRunner(pipeline=False)``): its pipelined loop races on a strip
+GeoTIFF, where the prefetch thread and ``_Sink``'s NaN-mask reads share one
+file object (fault C4 of the reference), and fails now and then with
+``ValueError: buffer is smaller than requested size`` in the TIFF decoder.
+
 Also here: a failing driver leaves no output file (fault C1 of the
-reference), and pipelined equals serial bit for bit on strip GeoTIFFs,
-where the prefetch and the NaN-mask reads share one file handle (fault C4
-of the reference).
+reference), and the port's pipelined loop equals its serial one bit for bit
+on strip GeoTIFFs, where the prefetch and the NaN-mask reads share one
+reader (the port's guard against C4).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -20,6 +28,7 @@ import torch
 
 from topo_descriptors_tpu import io as jio
 from topo_descriptors_tpu import streaming as jstream
+from topo_descriptors_tpu.parallel import tiles as jtiles
 from topo_descriptors_tpu_torch import streaming as tstream
 from topo_descriptors_tpu_torch.host import (
     DemWindowReader,
@@ -99,9 +108,20 @@ CALLS = {
 }
 
 
+@pytest.fixture()
+def serial_reference(monkeypatch):
+    """The JAX streaming drivers on the reference's own serial runner
+    (``pipeline=False``), so that no prefetch thread shares the GeoTIFF
+    file object with the NaN-mask reads (C4)."""
+    monkeypatch.setattr(jstream, "TiledRunner",
+                        functools.partial(jtiles.TiledRunner, pipeline=False))
+    assert not jstream.TiledRunner(TILE_ROWS).pipeline
+
+
 @pytest.mark.parametrize("source", ["nc", "tif"])
 @pytest.mark.parametrize("call", list(CALLS))
-def test_streamed_driver_matches_jax(call, source, dem_paths, dem_raster, tmp_path):
+def test_streamed_driver_matches_jax(call, source, dem_paths, dem_raster, tmp_path,
+                                     serial_reference):
     driver, args, kwargs = CALLS[call]
     ref = getattr(jstream, driver)(dem_paths[source], *args, outdir=tmp_path / "jax",
                                    tile_rows=TILE_ROWS, **kwargs)

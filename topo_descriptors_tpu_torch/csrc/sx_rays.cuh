@@ -41,11 +41,14 @@ static __device__ __forceinline__ float sx_max_ratio(
 }
 
 // The shared-memory variant of sx_max_ratio, for kR pixels of one thread
-// at once (sx_block.cu's halo tile). `tile` holds the DEM around the block
-// with NaN outside the grid, so pixel r reads tile[at[r] + soff[k]] where
-// sx_max_ratio reads dem[y + oy_k, x + ox_k] (or NaN); `group_ptr` and
-// `inv` are as above. Each pixel sees the same operations in the same order
-// as in sx_max_ratio, so the two agree bit for bit.
+// at once (the halo tiles of sx_block.cu and sx_sweep.cu). `tile` holds the
+// DEM around the block with NaN outside the grid, so pixel r reads
+// tile[at[r] + soff[k]] where sx_max_ratio reads dem[y + oy_k, x + ox_k]
+// (or NaN); `group_ptr` and `inv` are as above. `best` starts from the
+// group's first ray instead of NaN, which saves one fmax per group (most
+// groups hold a single ray): every group holds at least one ray
+// (ray_groups), and fmaxf(NaN, v) is v, so each pixel sees the values of
+// sx_max_ratio in the same order and the two agree bit for bit.
 template <int kR>
 static __device__ __forceinline__ void sx_max_ratio_tile(
     const float* tile, const int* soff, const int* group_ptr, const float* inv,
@@ -55,10 +58,12 @@ static __device__ __forceinline__ void sx_max_ratio_tile(
   for (int r = 0; r < kR; ++r) acc[r] = -INFINITY;
   for (int g = 0; g < n_groups; ++g) {
     float best[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) best[r] = NAN;
+    const int k0 = group_ptr[g];
     const int k1 = group_ptr[g + 1];
-    for (int k = group_ptr[g]; k < k1; ++k) {
+    const int s0 = soff[k0];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) best[r] = tile[at[r] + s0];
+    for (int k = k0 + 1; k < k1; ++k) {
       const int s = soff[k];
 #pragma unroll
       for (int r = 0; r < kR; ++r) best[r] = fmaxf(best[r], tile[at[r] + s]);

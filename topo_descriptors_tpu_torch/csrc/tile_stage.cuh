@@ -1,10 +1,10 @@
 // Staging field values into shared memory, shared by the tiled kernels
-// (disk_sat.cu, sx_block.cu). Two ways, each the faster one on the H100
+// (disk_sat.cu, sx_block.cu, sx_sweep.cu). Two ways, each the faster one on the H100
 // for the kernel that uses it:
 //   * cp.async (disk_sat.cu): one 4-byte copy per value, issued by every
 //     thread without waiting, then one wait: the whole tile's loads are in
 //     flight together;
-//   * stage_row (sx_block.cu): one warp per row, one 16-byte load per lane
+//   * stage_row (sx_block.cu, sx_sweep.cu): one warp per row, one 16-byte load per lane
 //     where the row is aligned.
 
 #pragma once

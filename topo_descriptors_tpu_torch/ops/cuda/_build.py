@@ -37,6 +37,9 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # the most dynamic shared memory one block may use on sm_90 (227 KB); the
 # tiled kernels' wrappers route by it
 SMEM_PER_BLOCK = 232_448
+# shared memory of one SM (228 KB), of which each resident block also takes
+# 1 KB
+SMEM_PER_SM = 233_472
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +64,12 @@ _SIGNATURES = {
                          ctypes.c_float, _I, _P),
     "sx_fan_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                        ctypes.c_float, _I, _P),
+    # dem, offsets, group_ptr, inv, az_ptr, boxes, n_az, out, h, w, border,
+    # height, zero_border, smem_bytes, vec, stream
+    "sx_sweep_tile_forward": (_P,) * 6 + (_I, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P),
+    # dem, soff, group_ptr, inv, az_ptr, groups, n_groups, out, h, w, border,
+    # height, zero_border, smem_bytes, vec, table_words, stream
+    "sx_fan_tile_forward": (_P,) * 6 + (_I, _P, _I, _I, _I, ctypes.c_float) + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,11 @@ shared plain PyTorch twin.
 _sx_sweep_kernel`` and :func:`sx_fan` replaces ``_sx_fan_kernel``, each
 with the epilogue its ``sx_*_pallas`` entry point runs after it. Both CUDA
 kernels are in ``csrc/sx_sweep.cu``, whose header says what bounds them on
-the H100 and how the two designs differ. They compute the same (A, H, W)
+the H100 and what their two routes do about it: ``"tile"`` stages the DEM
+the rays reach in shared memory (the sweep one azimuth's wedge per block,
+the fan the union box of a group of azimuths per block), ``"global"``
+(boxes above 227 KB) reads through L1/L2. :func:`route` chooses between
+them from the shared-memory bytes alone. They compute the same (A, H, W)
 function, so they share one plain twin, :func:`sx_sweep_plain`: the
 transcription of the XLA branch of ``topo_descriptors_tpu/ops/sx.py::
 sx_sweep`` (a NaN-padded DEM and one ``torch.fmax`` pass per ray for each
@@ -14,22 +18,34 @@ azimuth, then the atan epilogue per plane).
 The tables come from :func:`sweep_tables`: each azimuth's rays grouped by
 :func:`sx_block.ray_groups`, exactly as ``sx_block`` groups that azimuth
 alone, so the three kernels run the same per-pixel arithmetic and their
-planes agree bit for bit.
+planes agree bit for bit. :func:`device_tables` adds the boxes and the
+fan's azimuth groups and keeps all of it on the device in ``TABLES``.
 
 Each wrapper routes by the tensor: CPU tensors take the plain twin, CUDA
 tensors the kernel, anything else raises. ``LAUNCHES`` counts each
-kernel's launches by name.
+kernel's launches by name, ``ROUTE_LAUNCHES`` by name and route.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from topo_descriptors_tpu_torch.device import on_cuda, upload
+from topo_descriptors_tpu_torch.device import TableCache, on_cuda, upload
 from topo_descriptors_tpu_torch.ops.cuda import _build, sx_block
+from topo_descriptors_tpu_torch.ops.cuda.sx_block import TILE_H, TILE_W
 
 LAUNCHES = {"sx_sweep": 0, "sx_fan": 0}
+ROUTE_LAUNCHES = {"sx_sweep": {"tile": 0, "global": 0}, "sx_fan": {"tile": 0, "global": 0}}
+TABLES = TableCache()
+
+# the most shared memory one block of the fan's tile route may take (its
+# group's staged tile and two table buffers): four blocks then fit on an SM,
+# as the kernels' 64 registers allow, each with the 1 KB the hardware
+# reserves per block
+FAN_SMEM_BUDGET = _build.SMEM_PER_SM // 4 - 1024
 
 
 def sweep_tables(offsets, distances):
@@ -57,6 +73,111 @@ def sweep_tables(offsets, distances):
     )
 
 
+def azimuth_boxes(offsets, group_ptr, az_ptr) -> np.ndarray:
+    """(A, 4) ``sx_block.halo_box`` of each azimuth's rays in the flat
+    tables of :func:`sweep_tables`: (min oy, max oy, min ox, max ox) from
+    the signed offsets, (0, 0, 0, 0) for an azimuth without rays."""
+    rays = group_ptr[az_ptr]
+    return np.array([sx_block.halo_box(offsets[k0:k1]) for k0, k1 in zip(rays[:-1], rays[1:])],
+                    np.int64).reshape(-1, 4)
+
+
+def union_box(boxes) -> tuple:
+    """The bounding box of several halo boxes."""
+    b = np.asarray(boxes).reshape(-1, 4)
+    return int(b[:, 0].min()), int(b[:, 1].max()), int(b[:, 2].min()), int(b[:, 3].max())
+
+
+def staged_bytes(box) -> int:
+    """Shared memory of the output tile grown by the halo box."""
+    oy0, oy1, ox0, ox1 = box
+    return 4 * (TILE_H + oy1 - oy0) * (TILE_W + ox1 - ox0)
+
+
+def table_words(n_rays, n_groups) -> int:
+    """Words of the largest azimuth's table in shared memory (its rays,
+    group pointers and reciprocal distances), padded to 16 bytes."""
+    words = np.asarray(n_rays) + 2 * np.asarray(n_groups) + 1
+    return int(-(-words.max(initial=0) // 4) * 4)
+
+
+def fan_groups(boxes, budget: int) -> list:
+    """The fan kernel's groups of consecutive azimuths, as ``[(a0, a1),
+    ...]``: each group grows while the staged tile of its union box stays
+    within ``budget`` bytes; an azimuth whose own tile exceeds it is a
+    group alone."""
+    groups, a0, box = [], 0, None
+    for a, b in enumerate(np.asarray(boxes).reshape(-1, 4)):
+        grown = tuple(b) if box is None else union_box([box, b])
+        if box is not None and staged_bytes(grown) > budget:
+            groups.append((a0, a))
+            a0, grown = a, tuple(b)
+        box = grown
+    if box is not None:
+        groups.append((a0, len(boxes)))
+    return groups
+
+
+def route(smem_bytes: int) -> str:
+    """``"tile"`` when a block's shared memory fits, else ``"global"``; the
+    grid's size plays no part."""
+    return "tile" if smem_bytes <= _build.SMEM_PER_BLOCK else "global"
+
+
+class FanTables(NamedTuple):
+    """A fan's device tables and the launch geometry of both kernels."""
+
+    offsets: torch.Tensor  # (K', 2) int32, the rays of sweep_tables
+    group_ptr: torch.Tensor  # (G + 1,) int32
+    inv: torch.Tensor  # (G,) float32
+    az_ptr: torch.Tensor  # (A + 1,) int32
+    n_az: int
+    boxes: np.ndarray  # (A, 4) signed halo box per azimuth
+    sweep_boxes: torch.Tensor  # (A, 4) int32 (oy0, ox0, sh, sw) of each staged wedge
+    sweep_smem: int  # the largest azimuth's staged wedge and ray table
+    groups: list  # the fan kernel's azimuth groups (a0, a1)
+    fan: torch.Tensor  # (J, 6) int32 (a0, a1, oy0, ox0, sh, sw) per group
+    fan_soff: torch.Tensor  # (K',) int32, each ray's offset into its group's tile
+    table_words: int  # one of the fan kernel's two table buffers, in words
+    fan_smem: int  # the two table buffers and the largest group's staged tile
+
+
+def fan_tables(offsets, distances, device) -> FanTables:
+    """Builds and uploads :class:`FanTables` for a deduplicated padded fan."""
+    offs, group_ptr, inv, az_ptr = sweep_tables(offsets, distances)
+    boxes = azimuth_boxes(offs, group_ptr, az_ptr)
+    rays, n_groups = group_ptr[az_ptr], np.diff(az_ptr)
+    sweep_boxes = np.array([(oy0, ox0, TILE_H + oy1 - oy0, TILE_W + ox1 - ox0)
+                            for oy0, oy1, ox0, ox1 in boxes], np.int32).reshape(-1, 4)
+    sweep_smem = max((sx_block.tile_smem_bytes(b, int(k1 - k0), int(g))
+                      for b, k0, k1, g in zip(boxes, rays[:-1], rays[1:], n_groups)), default=0)
+    words = table_words(rays[1:] - rays[:-1], n_groups)
+    groups = fan_groups(boxes, FAN_SMEM_BUDGET - 8 * words)
+    fan, fan_soff = [], np.zeros(len(offs), np.int32)
+    for a0, a1 in groups:
+        oy0, oy1, ox0, ox1 = union_box(boxes[a0:a1])
+        sh, sw = TILE_H + oy1 - oy0, TILE_W + ox1 - ox0
+        k0, k1 = rays[a0], rays[a1]
+        fan_soff[k0:k1] = (offs[k0:k1, 0] - oy0) * sw + (offs[k0:k1, 1] - ox0)
+        fan.append((a0, a1, oy0, ox0, sh, sw))
+    fan = np.array(fan, np.int32).reshape(-1, 6)
+    fan_smem = 8 * words + max((4 * int(sh) * int(sw) for sh, sw in fan[:, 4:]), default=0)
+    return FanTables(
+        *(upload(t, device) for t in (offs, group_ptr, inv, az_ptr)), len(az_ptr) - 1,
+        boxes, upload(sweep_boxes, device), sweep_smem, groups, upload(fan, device),
+        upload(fan_soff, device), words, fan_smem,
+    )
+
+
+def device_tables(offsets, distances, border, device) -> FanTables:
+    """:func:`fan_tables`, built and uploaded once per (offsets, distances,
+    border, device) while it stays in ``TABLES``."""
+    o = np.ascontiguousarray(offsets, np.int64)
+    d = np.ascontiguousarray(distances, np.float64)
+    key = (o.tobytes(), o.shape, d.tobytes(), int(border), torch.device(device))
+    return TABLES.get(key, lambda: fan_tables(offsets, distances, device))
+
+
 def sx_sweep_plain(
     dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
     zero_border: bool = True,
@@ -72,22 +193,34 @@ def sx_sweep_plain(
     return out
 
 
-def _launch(entry: str, dem, offsets, distances, border, height, zero_border):
-    sx_block.check_dem(dem, entry)
+def _launch(kernel: str, dem, offsets, distances, border, height, zero_border):
+    sx_block.check_dem(dem, kernel)
     h, w = dem.shape
-    offs, group_ptr, inv, az_ptr = sweep_tables(offsets, distances)
-    tables = [upload(t, dem.device) for t in (offs, group_ptr, inv, az_ptr)]
-    n_az = len(az_ptr) - 1
-    out = torch.empty((n_az, h, w), dtype=torch.float32, device=dem.device)
+    t = device_tables(offsets, distances, border, dem.device)
+    smem = t.sweep_smem if kernel == "sx_sweep" else t.fan_smem
+    which = route(smem)
+    out = torch.empty((t.n_az, h, w), dtype=torch.float32, device=dem.device)
+    args = (int(border), float(height), int(bool(zero_border)))
     lib = _build.library()
     with torch.cuda.device(dem.device):
-        err = getattr(lib, f"{entry}_forward")(
-            dem.data_ptr(), *(t.data_ptr() for t in tables), n_az,
-            out.data_ptr(), h, w, int(border), float(height),
-            int(bool(zero_border)), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, entry)
-    LAUNCHES[entry] += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if which == "global":
+            err = getattr(lib, f"{kernel}_forward")(
+                dem.data_ptr(), t.offsets.data_ptr(), t.group_ptr.data_ptr(), t.inv.data_ptr(),
+                t.az_ptr.data_ptr(), t.n_az, out.data_ptr(), h, w, *args, stream)
+        else:
+            vec = int(dem.data_ptr() % 16 == 0 and w % 4 == 0)  # 16-byte row loads
+            if kernel == "sx_sweep":
+                rays, boxes, n, extra = t.offsets, t.sweep_boxes, t.n_az, ()
+            else:
+                rays, boxes, n, extra = t.fan_soff, t.fan, len(t.groups), (t.table_words,)
+            err = getattr(lib, f"{kernel}_tile_forward")(
+                dem.data_ptr(), rays.data_ptr(), t.group_ptr.data_ptr(), t.inv.data_ptr(),
+                t.az_ptr.data_ptr(), boxes.data_ptr(), n, out.data_ptr(), h, w, *args,
+                smem, vec, *extra, stream)
+    _build.check(err, f"{kernel} ({which})")
+    LAUNCHES[kernel] += 1
+    ROUTE_LAUNCHES[kernel][which] += 1
     return out
 
 
@@ -96,8 +229,8 @@ def sx_sweep(
     zero_border: bool = True,
 ) -> torch.Tensor:
     """:func:`sx_sweep_plain` on a CPU tensor; on a CUDA tensor, which must
-    be a contiguous float32 (H, W) DEM, the kernel with one thread per
-    (pixel, azimuth)."""
+    be a contiguous float32 (H, W) DEM, the kernel with one azimuth per
+    block (tile route) or per thread (global route)."""
     if not on_cuda(dem):
         return sx_sweep_plain(dem, offsets, distances, border, height, zero_border)
     return _launch("sx_sweep", dem, offsets, distances, border, height, zero_border)
@@ -108,8 +241,9 @@ def sx_fan(
     zero_border: bool = True,
 ) -> torch.Tensor:
     """:func:`sx_sweep_plain` on a CPU tensor; on a CUDA tensor, which must
-    be a contiguous float32 (H, W) DEM, the kernel with one thread per
-    pixel looping over the azimuths."""
+    be a contiguous float32 (H, W) DEM, the kernel with one group of
+    azimuths per block (tile route) or every azimuth per thread (global
+    route)."""
     if not on_cuda(dem):
         return sx_sweep_plain(dem, offsets, distances, border, height, zero_border)
     return _launch("sx_fan", dem, offsets, distances, border, height, zero_border)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topo_descriptors_tpu_torch.device import as_field, on_cuda
+from topo_descriptors_tpu_torch.device import TableCache, as_field, on_cuda
 from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_dedupe, sx_sweep_dedupe
 from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep as cuda_sweep
 
@@ -45,6 +45,22 @@ def sx(
 
 
 SWEEP_METHODS = ("auto", "pallas_fan", "pallas_sweep", "pallas", "xla")
+DEDUPED = TableCache()  # sx_sweep_dedupe's tables, read-only, by the tables' contents
+
+
+def _sweep_deduped(offsets, distances):
+    """:func:`sx_sweep_dedupe` of a padded fan, computed once per table
+    while it stays in ``DEDUPED``."""
+    o, d = np.ascontiguousarray(offsets), np.ascontiguousarray(distances)
+    key = (o.tobytes(), o.shape, o.dtype.str, d.tobytes(), d.shape, d.dtype.str)
+
+    def build():
+        tables = sx_sweep_dedupe(o, d)
+        for t in tables:
+            t.setflags(write=False)
+        return tables
+
+    return DEDUPED.get(key, build)
 
 
 def _sweep_auto_method(dem: torch.Tensor) -> str:
@@ -55,17 +71,20 @@ def _sweep_auto_method(dem: torch.Tensor) -> str:
     (``topo_descriptors_tpu.ops.sx._sweep_auto_method``) weighs Mosaic
     compile costs, which the CUDA build does not have.
 
-    That is ``sx_sweep`` (``'pallas_sweep'``). On the 36-azimuth sweep of
-    the 900 x 1440 grid (BASELINE.json configs[3]), kernel device time
-    from torch.profiler on an NVIDIA H100 80GB HBM3 at a 700.00 W power
-    limit: 1.03 ms at r = 200 m and 31.58 ms at r = 2000 m for
-    ``sx_sweep``, against 0.95 ms and 34.35 ms for ``sx_fan``. Their sum,
-    32.61 against 35.30 ms, decides. A sweep block reads one azimuth's
-    wedge of the halo; a fan block reads the whole disc for every azimuth,
-    which costs L1 hits at the 67-pixel border of r = 2000 m. At 8192 x
-    8192 and r = 500 m ``sx_fan`` leads by 2% (192.3 against 196.6 ms).
+    That is ``sx_fan`` (``'pallas_fan'``). Both kernels run their
+    shared-memory tile route on the 36-azimuth fans; ``chip_smoke.py``'s
+    times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (CUDA
+    events, median of 20), ``sx_fan`` against ``sx_sweep``: 0.2620 against
+    0.3245 ms at 900 x 1440 and r = 200 m, 5.2242 against 5.1324 ms at
+    r = 2000 m (BASELINE.json configs[3]), 24.4394 against 30.3623 ms at
+    8192 x 8192 and r = 500 m; 29.93 against 35.82 ms summed. A fan block
+    stages its group's box and reads each output's DEM value once for all
+    its azimuths, where a sweep block does both for one azimuth; that
+    per-block work counts at the short radii and is lost in the ray loop at
+    2000 m. The per-azimuth ``sx_block`` loop (``'pallas'``) took 4.9438,
+    10.1693 and 46.2821 ms on the same run.
     """
-    return "pallas_sweep" if on_cuda(dem) else "xla"
+    return "pallas_fan" if on_cuda(dem) else "xla"
 
 
 def _strip_pad_rows(offsets: np.ndarray, distances: np.ndarray):
@@ -94,29 +113,29 @@ def sx_sweep(
     ``offsets`` is (A, Kmax, 2) int32 and ``distances`` (A, Kmax), padded
     with zero offsets and NaN distances, as
     ``kernels.sx_geometry.sx_sweep_offsets`` builds them; the exact
-    per-azimuth deduplication (``sx_sweep_dedupe``) runs first. Plane ``a``
-    equals :func:`sx` on azimuth ``a``'s table.
+    per-azimuth deduplication (``sx_sweep_dedupe``, cached per table) runs
+    first. Plane ``a`` equals :func:`sx` on azimuth ``a``'s table.
 
     ``method`` keeps the JAX names: ``'pallas_sweep'`` runs the kernel with
-    one thread per (pixel, azimuth), ``'pallas_fan'`` the kernel with one
-    thread per pixel looping over the azimuths, ``'pallas'`` ``sx_block``
-    per azimuth, stacked, and ``'xla'`` the plain twin on any device. Each
-    kernel route takes its plain twin on a CPU tensor. ``'auto'``: see
-    :func:`_sweep_auto_method`.
+    one azimuth per block, ``'pallas_fan'`` the kernel with one group of
+    azimuths per block, ``'pallas'`` ``sx_block`` per azimuth, each plane
+    written into one preallocated output, and ``'xla'`` the plain twin on
+    any device. Each kernel route takes its plain twin on a CPU tensor.
+    ``'auto'``: see :func:`_sweep_auto_method`.
     """
     if method not in SWEEP_METHODS:
         raise ValueError(
             f"unknown Sx sweep method {method!r}: expected one of {SWEEP_METHODS}"
         )
     dem = as_field(dem, device)
-    offsets, distances = sx_sweep_dedupe(offsets, distances)
+    offsets, distances = _sweep_deduped(offsets, distances)
     if method == "auto":
         method = _sweep_auto_method(dem)
-    if method == "pallas":
-        return torch.stack([
-            sx_block.sx_block(dem, *_strip_pad_rows(o, d), border, height, zero_border)
-            for o, d in zip(offsets, distances)
-        ])
+    if method == "pallas":  # each plane written into one (A, H, W) output
+        out = torch.empty((len(offsets),) + tuple(dem.shape), dtype=dem.dtype, device=dem.device)
+        for a, (o, d) in enumerate(zip(offsets, distances)):
+            out[a] = sx_block.sx_block(dem, *_strip_pad_rows(o, d), border, height, zero_border)
+        return out
     run = {
         "pallas_sweep": cuda_sweep.sx_sweep,
         "pallas_fan": cuda_sweep.sx_fan,

@@ -54,7 +54,19 @@ Phases, each printing its lines:
    writer leaves every writer of its call aborted, and that the tiled
    pipeline backend and the CLI's ``--stream`` give the same outputs;
    time the 8192 x 8192 families (wall, Mpixel/s, the card's idle share);
-8. print the kernels' JSON line, then the result line.
+8. the mesh on the card (``parallel.ShardedOps``): a 1x1 mesh under a
+   one-rank NCCL group through ``compute_tpi``, ``compute_sx`` and the
+   36-azimuth ``compute_sx_sweep``; a 2x2 mesh of four blocks on
+   ``cuda:0`` through every ShardedOps method on the 900 x 1440 grid and
+   the ragged 1000 x 1337 one; a 2 km Sx on a (4, 1) mesh whose blocks are
+   shorter than the ray border (multi-hop); TPI-2000m and Sx-500m at
+   8192 x 8192 and 900 x 1440 on 2x2, timed against the single pass, with
+   the halo exchange timed apart; two processes in a gloo group, two blocks
+   each on ``cuda:0``; and ``cli.main(... --sharded --mesh 1 1)``. Every
+   output is held against the single pass (Sx and the sweep bit for bit)
+   and every sharded call must launch ``disk_sat``, ``sx_block`` or
+   ``sx_fan`` once per block and convolution;
+9. print the kernels' JSON line, then the result line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before it imports the port. Imports nothing of JAX.
@@ -1205,11 +1217,12 @@ def check_bands(label, driver, kwargs, rec, tile_rows, auto_kernel):
               f"{label}: {kernel} routes {rec['routes'][kernel]} for {n_bands} bands")
 
 
-def compare_to_single(label, out, call, ref, ref_call):
-    """Every output of one streamed or tiled ``call`` against the single
-    pass ``ref_call`` on the same filled grid: Sx bit for bit (a band reads
-    the same neighbours with the same code), TPI and STD as phase 4, DEM
-    and gradient as phase 6, valley/ridge as :func:`valley_agree`."""
+def compare_to_single(label, out, call, ref, ref_call, tag="ooc"):
+    """Every output of one streamed, tiled or sharded ``call`` against the
+    single pass ``ref_call`` on the same filled grid: Sx bit for bit (a band
+    or block reads the same neighbours with the same code), TPI and STD as
+    phase 4, DEM and gradient as phase 6, valley/ridge as
+    :func:`valley_agree`."""
     names = sorted(k.split("/")[1] for k in ref if k.startswith(f"{ref_call}/"))
     got = sorted(k.split("/")[1] for k in out if k.startswith(f"{call}/"))
     check(bool(names) and got == names, f"{label}: outputs {got}, expected {names}")
@@ -1228,7 +1241,7 @@ def compare_to_single(label, out, call, ref, ref_call):
             if "_NORM_" in var:
                 pair = [var, var.replace("_NORM_", "_DIR_")]
                 valley_agree(f"{label} {var}", tuple(out[f"{call}/{v}"].data for v in pair),
-                             tuple(ref[f"{ref_call}/{v}"].data for v in pair), tag="ooc")
+                             tuple(ref[f"{ref_call}/{v}"].data for v in pair), tag=tag)
             continue
         if kind in ("TPI", "STD"):
             err, tol, unit = disk_sx_error(kind, a, b)
@@ -1241,7 +1254,7 @@ def compare_to_single(label, out, call, ref, ref_call):
     if sx := sum(n.startswith("SX") for n in names):
         lines.append(f"{sx} Sx plane(s) bit-equal")
     if lines:
-        print(f"[ooc] {label} vs single pass: " + "; ".join(lines))
+        print(f"[{tag}] {label} vs single pass: " + "; ".join(lines))
 
 
 def same_outputs(label, a, a_call, b, b_call):
@@ -1434,6 +1447,390 @@ def run_out_of_core(baso, big, use_h5py, smi_line, auto_kernel):
     return launches
 
 
+# --- phase 8: the mesh on the card ------------------------------------------------
+
+MESH_SIZES = (17, 67, 201)  # 500 m, 2 km and 6 km disks at 30 m: both disk_sat routes
+HAND_KERNELS = ("disk_sat", "sx_block", "sx_sweep", "sx_fan")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def counted(fn):
+    """(``fn()``, the hand kernels' launches in it): the counts set to 0
+    just before the call and read just after it."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_launches()
+
+
+def mesh_op_cases(dem_ds, auto_kernel):
+    """``(label, kinds, sharded(sops, x, vs), single(dem), {kernel: launches
+    per block}, fill)`` of every ShardedOps method on ``dem_ds``'s grid:
+    TPI, STD and the fused batch at MESH_SIZES, the Gaussian at 2 km, the
+    gradient at 100 m (Sobel) and 2 km, valley at 2 km (the bank route), Sx
+    at 500 m and the 36-azimuth sweep at 200 m. ``fill`` pads a ragged grid
+    as the drivers do (NaN for Sx)."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import scale_to_pixel, sx_offsets, sx_sweep_offsets
+
+    (n2,), res = scale_to_pixel([2000], dem_ds)
+    n2, s2 = int(n2), float(n2) / 4  # the driver's sigma: scale_pxl / scale_std
+    dx, dy = float(res["x"].mean()), float(res["y"].mean())
+    o, d, b = sx_offsets(0.0, 500.0, dx, dy)
+    so, sd, sb = sx_sweep_offsets(SWEEP_AZIMUTHS, 200.0, dx, dy)
+    cases = []
+    for n in MESH_SIZES:
+        cases += [
+            (f"tpi {n} px", ("TPI",), lambda s, x, vs, n=n: [s.tpi(x, n, **vs)],
+             lambda t, n=n: [ops.tpi(t, n, device=t.device)], {"disk_sat": 1}, 0.0),
+            (f"std {n} px", ("STD",), lambda s, x, vs, n=n: [s.std(x, n, **vs)],
+             lambda t, n=n: [ops.std(t, n, device=t.device)], {"disk_sat": 1}, 0.0),
+        ]
+
+    def fused(s, x, vs):
+        batch = s.disk_descriptors(x, MESH_SIZES, **vs)
+        return [batch["tpi"], batch["std"]]
+
+    def fused_single(t):
+        batch = ops.disk_descriptors(t, MESH_SIZES, device=t.device)
+        return [batch["tpi"], batch["std"]]
+
+    grad = ("WE", "SN", "SLOPE", "ASPECT")
+    cases += [
+        (f"fused tpi+std {MESH_SIZES} px", ("TPI", "STD"), fused, fused_single,
+         {"disk_sat": len(MESH_SIZES)}, 0.0),
+        (f"gaussian 2 km (sigma {s2})", ("DEM",), lambda s, x, vs: [s.gaussian(x, s2, **vs)],
+         lambda t: [ops.gaussian_filter(t, s2)], {}, 0.0),
+        ("gradient 100 m (Sobel)", grad, lambda s, x, vs: s.gradient(x, 0.75, res, **vs),
+         lambda t: ops.gradient(t, 0.75, res, device=t.device), {}, 0.0),
+        (f"gradient 2 km (sigma {s2})", grad, lambda s, x, vs: s.gradient(x, s2, res, **vs),
+         lambda t: ops.gradient(t, s2, res, device=t.device), {}, 0.0),
+        (f"valley 2 km ({n2} px, bank)", ("VALLEY",),
+         lambda s, x, vs: s.valley_ridge(x, n2, "valley", VALLEY_FLATS, **vs),
+         lambda t: ops.valley_ridge(t, n2, "valley", VALLEY_FLATS, device=t.device), {}, 0.0),
+        ("sx 500 m", ("SX",), lambda s, x, vs: [s.sx(x, o, d, b, **vs)],
+         lambda t: [ops.sx(t, o, d, b, device=t.device)], {"sx_block": 1}, np.nan),
+        ("sx sweep 36 az r200", ("SX",), lambda s, x, vs: [s.sx_sweep(x, so, sd, sb, **vs)],
+         lambda t: [ops.sx_sweep(t, so, sd, sb, device=t.device)], {auto_kernel: 1}, np.nan),
+    ]
+    return cases
+
+
+def compare_mesh(label, kinds, outs, refs):
+    """Sharded outputs against the single pass: Sx bit for bit, TPI and STD
+    as phase 4, DEM and gradient as phase 6, valley as :func:`valley_agree`."""
+    if kinds == ("VALLEY",):
+        valley_agree(label, tuple(outs), tuple(refs), tag="mesh")
+        return
+    lines = []
+    for kind, a, b in zip(kinds, outs, refs):
+        check(a.shape == b.shape and a.dtype == np.float32, f"{label} {kind}: {a.shape} {a.dtype}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{label} {kind}: NaN positions differ")
+        check(np.isfinite(np.nanmax(np.abs(a))), f"{label} {kind}: no finite values")
+        if kind == "SX":
+            check(np.array_equal(a.view(np.int32), b.view(np.int32)),
+                  f"{label}: not bit-equal to the single pass")
+            lines.append(f"{a.shape} bit-equal")
+            continue
+        if kind in ("TPI", "STD"):
+            err, tol, unit = disk_sx_error(kind, a, b)
+            ok, tol = err <= tol, f"{tol} {unit}"
+        else:
+            slope = refs[kinds.index("SLOPE")] if kind == "ASPECT" else None
+            err, tol, ok = field_check(kind, a, b, slope)
+        lines.append(f"{kind} {err:.6g} ({tol})")
+        check(ok, f"{label} {kind}: {err} against the single pass ({tol})")
+    print(f"[mesh] {label} vs single pass: " + "; ".join(lines))
+
+
+def mesh_grid(sops, dem_ds, grid, auto_kernel, launches):
+    """Every ShardedOps method on ``dem_ds`` (padded to the mesh where
+    ragged) against the single pass on the card; each call must launch its
+    hand kernel once per block and convolution, and no other."""
+    from topo_descriptors_tpu_torch.parallel import pad_to_mesh
+
+    data = np.ascontiguousarray(dem_ds.data, np.float32)
+    h, w = data.shape
+    single_dem = torch.from_numpy(data).cuda()
+    ragged = h % sops.gy or w % sops.gx
+    vs = {"valid_shape": (h, w)} if ragged else {}
+    placed = {}
+    n_blocks = len(sops.mesh.local_blocks())
+    for label, kinds, sharded, single, per_block, fill in mesh_op_cases(dem_ds, auto_kernel):
+        key = "nan" if np.isnan(fill) else "zero"
+        if key not in placed:
+            placed[key] = sops.put(pad_to_mesh(data, sops.mesh, fill=fill)[0])
+        start = time.perf_counter()
+        out, got = counted(lambda: sharded(sops, placed[key], vs))
+        wall = time.perf_counter() - start
+        expect = {k: per_block.get(k, 0) * n_blocks for k in HAND_KERNELS}
+        check(got == expect, f"{grid} {label}: launches {got}, expected {expect}")
+        for k, n in got.items():
+            launches[k] += n
+        outs = [np.asarray(a.numpy())[..., :h, :w] for a in out]
+        refs = [t.cpu().numpy() for t in single(single_dem)]
+        compare_mesh(f"{grid} {sops.gy}x{sops.gx}{' ragged' if ragged else ''} {label} "
+                     f"({wall:.3f} s, launches {({k: n for k, n in got.items() if n})})",
+                     kinds, outs, refs)
+
+
+def mesh_nccl_1x1(dem_ds, ind_nans, use_h5py, auto_kernel, launches):
+    """A 1x1 mesh under a one-rank NCCL group (``runtime.initialize``)
+    through the drivers, against the drivers without a mesh."""
+    import torch.distributed as dist
+
+    from topo_descriptors_tpu_torch.parallel import ShardedOps, make_mesh, runtime
+
+    check(runtime.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0),
+          "runtime.initialize joined no group")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"backend {dist.get_backend()}")
+        sops = ShardedOps(make_mesh((1, 1)))
+        calls = [("compute_tpi", dict(scales=[2000], ind_nans=ind_nans), "disk_sat"),
+                 ("compute_sx", dict(azimuth=0, radius=500), "sx_block"),
+                 ("compute_sx_sweep", dict(azimuths=SWEEP_AZIMUTHS, radius=2000), auto_kernel)]
+        for j, (driver, kwargs, kernel) in enumerate(calls):
+            (out, _), got = counted(lambda: run_drivers(
+                dem_ds, [(driver, dict(kwargs, sharded=sops))], use_h5py, prefix=f"nccl{j}_"))
+            check(got[kernel] == 1, f"1x1 NCCL {driver}: launches {got}")
+            launches[kernel] += got[kernel]
+            ref, _ = run_drivers(dem_ds, [(driver, kwargs)], use_h5py, prefix=f"ref{j}_")
+            compare_to_single(f"1x1 mesh, one-rank NCCL group ({sops.mesh.entries}): {driver} "
+                              f"(launches {got[kernel]} {kernel})",
+                              out, f"nccl{j}_0", ref, f"ref{j}_0", tag="mesh")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_multihop(dem_ds, launches):
+    """A 2 km Sx on a (4, 1) mesh of a 200-row crop: 50-row blocks against a
+    67-px ray border, so each halo takes two hops."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import sx_offsets
+    from topo_descriptors_tpu_torch.parallel import ShardedOps, make_mesh
+
+    crop = np.ascontiguousarray(dem_ds.data[:200], np.float32)
+    sops = ShardedOps(make_mesh((4, 1), ["cuda:0"] * 4))
+    x, t = sops.put(crop), torch.from_numpy(crop).cuda()
+    rows = x.block_shape[0]
+    for az in (0.0, 180.0):
+        o, d, b = sx_offsets(az, 2000.0, 30.0, 30.0)
+        check(b > rows, f"border {b} does not exceed the {rows}-row blocks")
+        out, got = counted(lambda: sops.sx(x, o, d, b))
+        check(got["sx_block"] == 4, f"multi-hop Sx: launches {got}")
+        launches["sx_block"] += 4
+        compare_mesh(f"{crop.shape} (4, 1) Sx 2 km azimuth {az:g}, border {b} over {rows}-row "
+                     f"blocks ({-(-b // rows)} hops)", ("SX",), [out.numpy()],
+                     [ops.sx(t, o, d, b, device=t.device).cpu().numpy()])
+
+
+def mesh_timing(grids_np, smi_line, launches):
+    """TPI-2000m and Sx-500m on a 2x2 mesh of four blocks on cuda:0 against
+    the single pass (CUDA events, median of 20, the DEM already on the card
+    for both), with the halo exchange alone timed beside them. Four blocks
+    on one card share its SMs and memory: no scaling figure."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import sx_dedupe, sx_offsets
+    from topo_descriptors_tpu_torch.parallel import ShardedOps, exchange_halo, make_mesh
+
+    sops = ShardedOps(make_mesh((2, 2), ["cuda:0"] * 4))
+    o, d, b = sx_offsets(0.0, 500.0, 30.0, 30.0)
+    times = {}
+    for grid, data in grids_np.items():
+        t, x = torch.from_numpy(data).cuda(), sops.put(data)
+        mpix = data.size / 1e6
+        def uncached():  # the count planes rebuilt in each call, as ops.tpi does
+            sops._cache.clear()
+            return sops.tpi(x, 67)
+
+        rows = [
+            ("TPI-2000m", "TPI", lambda: ops.tpi(t, 67, device=t.device), lambda: sops.tpi(x, 67),
+             lambda: exchange_halo(x.blocks, sops.mesh, 33, 33, "zero"), "disk_sat", uncached),
+            ("Sx-500m", "SX", lambda: ops.sx(t, o, d, b, device=t.device),
+             lambda: sops.sx(x, o, d, b), lambda: exchange_halo(x.blocks, sops.mesh, b, b, "nan"),
+             "sx_block", None),
+        ]
+        for label, kind, single, sharded, halo, kernel, cold in rows:
+            out, got = counted(sharded)
+            check(got[kernel] == 4, f"{grid} {label} on 2x2: launches {got}")
+            launches[kernel] += 4
+            compare_mesh(f"{grid} 2x2 {label}", (kind,), [out.numpy()], [single().cpu().numpy()])
+            reset_launches()
+            t_single, t_sharded, t_halo = median_ms(single), median_ms(sharded), median_ms(halo)
+            times[(label, grid)] = dict(single=t_single, sharded=t_sharded, halo=t_halo)
+            extra = ""
+            if cold is not None:
+                times[(label, grid)]["uncached"] = t_cold = median_ms(cold)
+                extra = f"; the mesh with its count planes rebuilt per call {t_cold:.4f} ms"
+            print(f"[time] {label} {grid}: single pass {t_single:.4f} ms "
+                  f"({mpix / t_single * 1e3:.1f} Mpixel/s); 2x2 mesh of four blocks on cuda:0 "
+                  f"{t_sharded:.4f} ms ({mpix / t_sharded * 1e3:.1f} Mpixel/s; "
+                  f"{t_sharded / t_single:.3f} x the single pass), its halo exchange alone "
+                  f"{t_halo:.4f} ms ({t_halo / t_sharded:.3f} of the mesh wall; median of "
+                  f"{TIMING_REPS}){extra} on {smi_line}")
+        del t, x
+    return times
+
+
+def gloo_worker(rank, port, queue):
+    """One rank of phase 8's two-process gloo group on cuda:0: two blocks of
+    a 2x2 mesh (rank 0 the top row), TPI 67 px and Sx 500 m at 900 x 1440,
+    its own blocks held against the single pass on the card. Puts ``(rank,
+    result)`` on ``queue``; an exception is put as its text and raised."""
+    try:
+        import torch.distributed as dist
+
+        from topo_descriptors_tpu_torch import ops
+        from topo_descriptors_tpu_torch.host import basodino_like_dem, sx_offsets
+        from topo_descriptors_tpu_torch.parallel import ShardedOps, make_mesh, runtime
+
+        torch.cuda.set_device(0)
+        check(runtime.initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                                 backend="gloo"), "no group")
+        mesh = make_mesh((2, 2), ["cuda:0"] * 2)
+        check(mesh.multi_process and [b[0] for b in mesh.local_blocks()] == [rank, rank],
+              f"rank {rank} holds {mesh.local_blocks()}")
+        sops = ShardedOps(mesh)
+        data = basodino_like_dem(projected=True).data.astype(np.float32)
+        bh, bw = 450, 720
+        blocks = [data[i * bh:(i + 1) * bh, j * bw:(j + 1) * bw] for i, j in mesh.local_blocks()]
+        x = runtime.host_local_to_global(mesh, blocks)
+        dem = torch.from_numpy(data).cuda()
+        o, d, b = sx_offsets(0.0, 500.0, 30.0, 30.0)
+        tpi, got_tpi = counted(lambda: sops.tpi(x, 67))
+        sx, got_sx = counted(lambda: sops.sx(x, o, d, b))
+        ref_tpi = ops.tpi(dem, 67, device=dem.device).cpu().numpy()
+        ref_sx = ops.sx(dem, o, d, b, device=dem.device).cpu().numpy()
+        err, sx_bits = 0.0, True
+        for (i, j), block in tpi.blocks.items():
+            err = max(err, float(np.abs(block.cpu().numpy()
+                                        - ref_tpi[i * bh:(i + 1) * bh, j * bw:(j + 1) * bw]).max()))
+        for (i, j), block in sx.blocks.items():
+            want = ref_sx[i * bh:(i + 1) * bh, j * bw:(j + 1) * bw]
+            sx_bits &= bool(np.array_equal(block.cpu().numpy().view(np.int32), want.view(np.int32)))
+        dist.destroy_process_group()
+        queue.put((rank, dict(blocks=mesh.local_blocks(), tpi_err=err, sx_bits=sx_bits,
+                              launches={"disk_sat": got_tpi["disk_sat"],
+                                        "sx_block": got_sx["sx_block"]})))
+    except BaseException as exc:
+        queue.put((rank, f"{type(exc).__name__}: {exc}"))
+        raise
+
+
+def mesh_two_processes(launches):
+    """Two spawned processes in one gloo group, two blocks each on cuda:0
+    (the kernels were built by this process before)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    start = time.perf_counter()
+    procs = [ctx.Process(target=gloo_worker, args=(rank, port, q)) for rank in range(2)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + 300
+    try:
+        while len(results) < len(procs):
+            try:
+                rank, res = q.get(timeout=1)
+                results[rank] = res
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode is not None
+                        and r not in results]
+                if dead:  # a result put just before the exit may still be in the pipe
+                    with contextlib.suppress(queue_mod.Empty):
+                        rank, res = q.get(timeout=5)
+                        results[rank] = res
+                    dead = [r for r in dead if r not in results]
+                check(not dead, f"gloo rank(s) {dead} exited without a result")
+                check(time.monotonic() < deadline,
+                      f"two-process gloo run: no result after 300 s ({results})")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank in range(2):
+        res = results.get(rank)
+        check(isinstance(res, dict), f"gloo rank {rank} failed: {res}")
+        check(procs[rank].exitcode == 0, f"gloo rank {rank} exit code {procs[rank].exitcode}")
+        check(res["tpi_err"] <= 1e-2 and res["sx_bits"],
+              f"gloo rank {rank}: TPI error {res['tpi_err']}, Sx bit-equal {res['sx_bits']}")
+        check(res["launches"] == {"disk_sat": 2, "sx_block": 2},
+              f"gloo rank {rank}: launches {res['launches']}")
+        for k, n in res["launches"].items():
+            launches[k] += n
+        print(f"[mesh] two-process gloo group on cuda:0, rank {rank} blocks {res['blocks']}: "
+              f"TPI 67 px max|mesh-single| {res['tpi_err']:.6g} m (tol 1e-2), Sx 500 m "
+              f"bit-equal, launches {res['launches']}")
+    print(f"[mesh] two-process gloo run in {time.perf_counter() - start:.1f} s (spawn and CUDA "
+          "start-up included)")
+
+
+def mesh_cli(use_h5py, launches):
+    """``cli.main([... --sharded --mesh 1 1])`` on the card against the
+    drivers' single pass."""
+    from topo_descriptors_tpu_torch import cli
+    from topo_descriptors_tpu_torch.host import basodino_like_dem
+
+    store = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.ExitStack() as stack:
+            if not use_h5py:
+                stack.enter_context(memory_writer(store))
+            rc, got = counted(lambda: cli.main([
+                "--synthetic", "900x1440", "--outdir", str(Path(tmp) / "climesh"),
+                "--descriptors", "tpi", "sx", "--scales", "2000", "--sx-radius", "500",
+                "--sharded", "--mesh", "1", "1"]))
+        check(rc == 0, "the CLI failed")
+        if use_h5py:
+            read_outputs(Path(tmp) / "climesh", store)
+    check(got["disk_sat"] == 1 and got["sx_block"] == 1, f"CLI --sharded launches {got}")
+    for k in ("disk_sat", "sx_block"):
+        launches[k] += 1
+    ref, _ = run_drivers(basodino_like_dem(900, 1440, projected=True),
+                         [("compute_tpi", dict(scales=[2000])),
+                          ("compute_sx", dict(azimuth=0, radius=500))], use_h5py, prefix="cliref")
+    for j, var in enumerate(("TPI_2000M", "SX_RADIUS500_AZIMUTH0")):
+        store[f"clione{j}/{var}"] = store[f"climesh/{var}"]
+        compare_to_single(f"CLI --sharded --mesh 1 1 {var}", store, f"clione{j}", ref,
+                          f"cliref{j}", tag="mesh")
+
+
+def run_mesh(baso_ds, ragged_ds, big_np, dem_ds, ind_nans, use_h5py, smi_line, auto_kernel):
+    """Phase 8: the mesh on the card. Returns the hand kernels' launches in
+    the sharded calls and the 2x2 times."""
+    from topo_descriptors_tpu_torch.parallel import ShardedOps, make_mesh
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(HAND_KERNELS, 0)
+    mesh_nccl_1x1(dem_ds, ind_nans, use_h5py, auto_kernel, launches)
+    sops = ShardedOps(make_mesh((2, 2), ["cuda:0"] * 4))
+    mesh_grid(sops, baso_ds, "900x1440", auto_kernel, launches)
+    mesh_grid(sops, ragged_ds, "1000x1337", auto_kernel, launches)
+    mesh_multihop(baso_ds, launches)
+    times = mesh_timing({"900x1440": np.ascontiguousarray(baso_ds.data, np.float32),
+                         "8192x8192": big_np}, smi_line, launches)
+    mesh_two_processes(launches)
+    mesh_cli(use_h5py, launches)
+    print(f"[mesh] done in {time.perf_counter() - t0:.1f} s, launches in the sharded calls "
+          f"{launches}")
+    for kernel in ("disk_sat", "sx_block", auto_kernel):
+        check(launches[kernel] > 0, f"the mesh launched no {kernel}: {launches}")
+    return launches, times
+
+
 def main() -> int:
     name, smi_line = card()
     from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na
@@ -1528,6 +1925,10 @@ def main() -> int:
     streamed_launches = run_out_of_core(baso.with_data(data), with_holes(big, BIG_HOLES), use_h5py,
                                         smi_line, auto_kernel)
     print(f"[ooc] done at {time.perf_counter() - t0:.1f} s")
+    sharded_launches, _ = run_mesh(baso, basodino_like_dem(1000, 1337, seed=3),
+                                   np.ascontiguousarray(big.data, np.float32), dem_ds, ind_nans,
+                                   use_h5py, smi_line, auto_kernel)
+    print(f"[mesh] done at {time.perf_counter() - t0:.1f} s")
     sources = {
         "disk_sat": ("topo_descriptors_tpu_torch/csrc/disk_sat.cu",
                      "topo_descriptors_tpu/ops/pallas/disk_sat.py:58"),
@@ -1549,6 +1950,7 @@ def main() -> int:
         if kernel in slice3_launches:  # TerrainSuite.forward, phase 6
             entry["launches_suite"] = slice3_launches[kernel]
         entry["launches_streamed"] = streamed_launches[kernel]  # phase 7
+        entry["launches_sharded"] = sharded_launches[kernel]  # phase 8
         if kernel in sx_sweep.LAUNCHES:  # 36 azimuths; ms at 900x1440 r = 200 m
             for suffix, case in (("", "900x1440 r200"), ("_r2000", "900x1440 r2000"),
                                  ("_8192", "8192x8192 r500")):

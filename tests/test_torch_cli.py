@@ -1,7 +1,7 @@
 """The port's CLI on the CPU (``--device cpu``): the cases of
-tests/test_cli.py except the sharded ones, which exit naming ROADMAP A13
-here, with outputs held against the JAX CLI's within the tolerances of
-tests/test_torch_pipeline.py."""
+tests/test_cli.py, with outputs held against the JAX CLI's within the
+tolerances of tests/test_torch_pipeline.py; ``--sharded`` on a mesh of CPU
+blocks, plain and streamed, against the port's single pass."""
 
 import numpy as np
 import pytest
@@ -105,12 +105,44 @@ def test_cli_stream_refuses(tmp_path, extra):
     assert list(tmp_path.iterdir()) == []
 
 
-@pytest.mark.parametrize("extra", [["--sharded"], ["--mesh", "2", "4"],
-                                   ["--sharded", "--tiled", "8"]],
-                         ids=["sharded", "mesh", "sharded-and-tiled"])
-def test_cli_sharded_not_ported(tmp_path, extra):
-    with pytest.raises(SystemExit, match="A13"):
+@pytest.mark.parametrize("extra,match", [
+    (["--sharded", "--mesh", "0", "2"], "mesh shape"),
+    (["--mesh", "2", "4"], "add --sharded"),
+    (["--sharded", "--tiled", "8"], "mutually exclusive"),
+], ids=["sharded", "mesh", "sharded-and-tiled"])
+def test_cli_sharded_not_ported(tmp_path, extra, match):
+    """Misuse of --sharded/--mesh exits before any output: an empty mesh,
+    --mesh without --sharded, --sharded with --tiled (the mesh itself runs
+    in test_cli_sharded_matches_single_pass)."""
+    with pytest.raises(SystemExit, match=match):
         main(["--synthetic", "32x32", "--outdir", str(tmp_path), "--device", "cpu"] + extra)
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("mode", ["plain", "stream"])
+def test_cli_sharded_matches_single_pass(tmp_path, dem_path, mode):
+    """``--sharded --mesh 2 2 --device cpu`` places four blocks on the CPU;
+    with --stream each block is read straight onto the mesh and the
+    outputs stream back in bands. The 61 x 94 grid does not divide the
+    mesh. Outputs equal the single pass's (Sx bit for bit)."""
+    write_raster(basodino_like_dem(ny=61, nx=94, projected=True), tmp_path / "dem.nc")
+    args = ["--dem", str(tmp_path / "dem.nc"), "--descriptors", "dem", "tpi", "std", "gradient",
+            "valley", "sx", "--scales", "200", "--sx-azimuths", "0", "90", "--sx-radius", "300",
+            "--device", "cpu"]
+    sharded = ["--sharded", "--mesh", "2", "2"] + (["--stream", "16"] if mode == "stream" else [])
+    assert main(args + sharded + ["--outdir", str(tmp_path / "mesh")]) == 0
+    assert main(args + ["--outdir", str(tmp_path / "single")]) == 0
+    names = sorted(p.name for p in (tmp_path / "single").glob("topo_*.nc"))
+    assert len(names) == 11 and sorted(p.name for p in (tmp_path / "mesh").glob("topo_*.nc")) == names
+    for name in names:
+        a, b = read_raster(tmp_path / "mesh" / name), read_raster(tmp_path / "single" / name)
+        kind = a.name.split("_")[0]
+        if kind == "SX":
+            np.testing.assert_array_equal(a.data.view(np.int32), b.data.view(np.int32))
+        elif kind != "VALLEY":
+            np.testing.assert_allclose(a.data, b.data, equal_nan=True, **TOL[kind])
+        elif "_NORM_" in a.name:
+            np.testing.assert_allclose(a.data, b.data, rtol=1e-3, atol=2e-3)
 
 
 def test_cli_defaults_to_cuda(tmp_path):

@@ -144,17 +144,23 @@ def test_config_from_file_matches_jax(tmp_path):
         "std_int32_parity: false\n"
         "compute_dtype: float32\n"
         "valley_bank_max_bytes: 1e6\n"
-        "mesh_shape: 2x4\n"  # a TPU-only field of the JAX package: ignored by the port
-        "compilation_cache_dir: /nowhere\n"
+        "mesh_shape: 2x4\n"
+        "compilation_cache_dir: /nowhere\n"  # a TPU-only field of the JAX package: ignored
         "no_such_key: 1\n"
     )
     port, ref = tconfig.Config.from_file(conf), jconfig.Config.from_file(conf)
     fields = [f.name for f in tconfig.dataclasses.fields(port)]
     assert set(fields) == {
-        "min_elevation", "scale_std", "compute_dtype", "fft_conv_min_taps", "shift_acc_max_taps",
-        "fft_correlate1d_min_taps", "sat_conv_min_taps", "valley_bank_max_bytes",
-        "valley_chunk_bytes", "valley_canvas_cache_bytes", "std_int32_parity"}
+        "min_elevation", "scale_std", "mesh_shape", "compute_dtype", "fft_conv_min_taps",
+        "shift_acc_max_taps", "fft_correlate1d_min_taps", "sat_conv_min_taps",
+        "valley_bank_max_bytes", "valley_chunk_bytes", "valley_canvas_cache_bytes",
+        "std_int32_parity"}
+    # the JAX package keeps the mesh shape as the text "2x4", which its
+    # make_mesh cannot multiply; the port parses it
+    assert port.mesh_shape == (2, 4) and ref.mesh_shape == "2x4"
     for name in fields:
+        if name == "mesh_shape":
+            continue
         assert getattr(port, name) == getattr(ref, name), name
         assert type(getattr(port, name)) is type(getattr(ref, name)), name
     assert (port.min_elevation, port.scale_std, port.sat_conv_min_taps) == (-50.0, 3.0, 64)

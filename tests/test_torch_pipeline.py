@@ -171,11 +171,15 @@ def test_slice3_skip_existing_keeps_files(dem_with_holes, tmp_path, driver, args
 
 
 def test_sharded_backend_not_ported(dem_with_holes, tmp_path):
+    """``sharded=`` takes a ShardedOps or a TiledRunner (the mesh runs in
+    tests/test_torch_sharded_drivers.py); anything else is refused before
+    any output is written."""
     _, dem = dem_with_holes
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="ShardedOps"):
         tpipe.compute_tpi(dem, [100], outdir=tmp_path, sharded=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="ShardedOps"):
         tpipe.compute_sx(dem, 0, 300, outdir=tmp_path, sharded=object(), device="cpu")
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("driver,args", [
@@ -183,13 +187,13 @@ def test_sharded_backend_not_ported(dem_with_holes, tmp_path):
     ("compute_valley_ridge", ([300], "valley"))])
 def test_slice3_sharded_backends_not_ported(dem_with_holes, tmp_path, driver, args):
     _, dem = dem_with_holes
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="ShardedOps"):
         getattr(tpipe, driver)(dem, *args, outdir=tmp_path, sharded=object(), device="cpu")
 
 
 def test_sx_sweep_sharded_backend_not_ported(dem_with_holes, tmp_path):
     _, dem = dem_with_holes
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="ShardedOps"):
         tpipe.compute_sx_sweep(dem, [0, 90], 300, outdir=tmp_path, sharded=object(),
                                device="cpu")
 

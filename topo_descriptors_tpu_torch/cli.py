@@ -1,13 +1,14 @@
-"""Command-line batch driver of the PyTorch port (single device).
+"""Command-line batch driver of the PyTorch port.
 
 The counterpart of ``topo_descriptors_tpu.cli``: ingest a DEM, fill NaNs,
 and run a battery of descriptors over a list of scales, writing one NetCDF
 per (descriptor, scale). Same flags and battery (TPI and STD fused when
-both are asked for, the Sx sweep for more than one azimuth, ``--tiled``,
-``--stream``, ``--skip-existing``, crop), plus ``--device`` (default
-``cuda``, which exits with an error where CUDA is missing; ``cpu`` runs
-the plain PyTorch versions). ``--sharded`` and ``--mesh`` wait for the
-multi-device port (ROADMAP A13) and exit.
+both are asked for, the Sx sweep for more than one azimuth, ``--sharded``
+and ``--mesh``, ``--tiled``, ``--stream``, ``--skip-existing``, crop),
+plus ``--device`` (default ``cuda``, which exits with an error where CUDA
+is missing; ``cpu`` runs the plain PyTorch versions). ``--sharded`` runs
+on a mesh of every visible CUDA device, whose shape ``--mesh`` must match;
+with ``--device cpu``, ``--mesh GY GX`` places gy*gx blocks on the CPU.
 
 Usage::
 
@@ -16,6 +17,9 @@ Usage::
 
     python -m topo_descriptors_tpu_torch --dem DEM.tif --outdir out \\
         --descriptors tpi std sx --sx-azimuths 0 90 --stream 2048
+
+    python -m topo_descriptors_tpu_torch --synthetic 900x1440 --outdir out \\
+        --descriptors tpi sx --sharded --mesh 2 2 --device cpu
 """
 
 from __future__ import annotations
@@ -28,12 +32,6 @@ from pathlib import Path
 logger = logging.getLogger(__name__)
 
 ALL_DESCRIPTORS = ("dem", "tpi", "std", "gradient", "valley", "ridge", "sx")
-
-SHARDED_NOT_PORTED = (
-    "--sharded/--mesh: the multi-device mesh is not ported to PyTorch yet "
-    "(ROADMAP A13); run on one device, with --tiled or --stream for grids "
-    "larger than its memory"
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-existing", action="store_true",
                    help="skip (descriptor, scale) outputs already present in --outdir")
     p.add_argument("--sharded", action="store_true",
-                   help="multi-device mesh: not ported yet (ROADMAP A13), exits")
+                   help="run over all visible devices on a 2-D spatial mesh (with --device "
+                   "cpu: gy*gx blocks of --mesh on the CPU)")
     p.add_argument("--tiled", type=int, metavar="ROWS",
                    help="stream the DEM out-of-core in row bands of this height")
     p.add_argument("--stream", type=int, metavar="ROWS",
@@ -71,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "NetCDF output; host memory stays at a few bands whatever the grid size "
                    "(requires --dem; --crop unsupported)")
     p.add_argument("--mesh", nargs=2, type=int, default=None, metavar=("GY", "GX"),
-                   help="mesh shape for --sharded: not ported yet (ROADMAP A13), exits")
+                   help="mesh shape for --sharded (default: CFG.mesh_shape, else near-square)")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
@@ -84,8 +83,31 @@ def _whole_scales(scales):
     return [int(s) if float(s).is_integer() else s for s in scales]
 
 
-def _main_streamed(args) -> int:
-    """Fully out-of-core battery: disk -> banded device compute -> disk."""
+def _sharded_ops(args):
+    """The ShardedOps of ``--sharded``: a mesh of every visible CUDA device
+    (``--mesh`` must match their count), or with ``--device cpu`` gy*gx
+    blocks on the CPU (``--mesh``, else ``CFG.mesh_shape``, else one)."""
+    from topo_descriptors_tpu_torch.config import CFG
+    from topo_descriptors_tpu_torch.device import resolve_device
+    from topo_descriptors_tpu_torch.parallel import ShardedOps, make_mesh
+
+    shape = tuple(args.mesh) if args.mesh else None
+    try:
+        if resolve_device(args.device).type == "cpu":
+            gy, gx = shape or CFG.mesh_shape or (1, 1)
+            mesh = make_mesh((gy, gx), ["cpu"] * max(gy * gx, 0))
+        else:
+            mesh = make_mesh(shape)
+    except ValueError as exc:
+        raise SystemExit(f"--mesh: {exc}") from exc
+    logger.info(f"mesh {mesh.shape} on {sorted(set(map(str, mesh.local_devices())))}")
+    return ShardedOps(mesh)
+
+
+def _main_streamed(args, sops) -> int:
+    """Fully out-of-core battery: disk -> banded device compute -> disk.
+    With ``--sharded``, each process reads its blocks straight onto the
+    mesh and the outputs stream back in bands of ``--stream`` rows."""
     from topo_descriptors_tpu_torch import streaming
 
     if args.dem is None:
@@ -98,34 +120,46 @@ def _main_streamed(args) -> int:
 
     scales = _whole_scales(args.scales)
     args.outdir.mkdir(parents=True, exist_ok=True)
-    common = dict(outdir=args.outdir, skip_existing=args.skip_existing,
-                  tile_rows=args.stream, device=args.device)
+    common = dict(outdir=args.outdir, skip_existing=args.skip_existing)
+    if sops is None:
+        common.update(tile_rows=args.stream, device=args.device)
+    else:
+        common.update(sops=sops, band_rows=args.stream)
     sig_ratios = args.sig_ratios * len(scales) if len(args.sig_ratios) == 1 else args.sig_ratios
     both = "tpi" in args.descriptors and "std" in args.descriptors
 
     with streaming.open_dem(args.dem) as dem:
         logger.info(f"streaming DEM {dem.shape}, crs {dem.grid.crs}, "
-                    f"bands of {args.stream} rows on {args.device}")
+                    + (f"mesh ingest, bands of {args.stream} rows" if sops else
+                       f"bands of {args.stream} rows on {args.device}"))
         written = []
         for name in args.descriptors:
             if name == "dem":
-                written += streaming.compute_dem(dem, scales, **common)
+                fn = streaming.compute_dem_sharded if sops else streaming.compute_dem
+                written += fn(dem, scales, **common)
             elif name in ("tpi", "std"):
                 if both and name != "tpi":
                     continue  # written by the fused pass
+                if sops:
+                    written += streaming.compute_tpi_std_sharded(
+                        dem, scales, kinds=("tpi", "std") if both else (name,),
+                        smth_factors=args.smth_factors, **common)
+                    continue
                 fn = streaming.compute_tpi_std if both else (
                     streaming.compute_tpi if name == "tpi" else streaming.compute_std)
                 written += fn(dem, scales, smth_factors=args.smth_factors, **common)
             elif name == "gradient":
-                written += streaming.compute_gradient(dem, scales, sig_ratios=sig_ratios,
-                                                      **common)
+                fn = streaming.compute_gradient_sharded if sops else streaming.compute_gradient
+                written += fn(dem, scales, sig_ratios=sig_ratios, **common)
             elif name in ("valley", "ridge"):
-                written += streaming.compute_valley_ridge(
-                    dem, scales, mode=name, flat_list=args.flat_list,
-                    smth_factors=args.smth_factors, **common)
+                fn = (streaming.compute_valley_ridge_sharded if sops
+                      else streaming.compute_valley_ridge)
+                written += fn(dem, scales, mode=name, flat_list=args.flat_list,
+                              smth_factors=args.smth_factors, **common)
             elif name == "sx":
-                written += streaming.compute_sx(dem, args.sx_azimuths, args.sx_radius,
-                                                height=args.sx_height, **common)
+                fn = streaming.compute_sx_sharded if sops else streaming.compute_sx
+                written += fn(dem, args.sx_azimuths, args.sx_radius, height=args.sx_height,
+                              **common)
     logger.info(f"wrote {len(written)} files to {args.outdir}")
     return 0
 
@@ -134,8 +168,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(levelname)s:%(name)s: %(message)s")
-    if args.sharded or args.mesh:
-        raise SystemExit(SHARDED_NOT_PORTED)
+    if args.sharded and args.tiled:
+        raise SystemExit("--sharded and --tiled are mutually exclusive")
+    if args.mesh and not args.sharded:
+        raise SystemExit("--mesh sets the shape of the --sharded mesh; add --sharded")
 
     from topo_descriptors_tpu_torch import pipeline
     from topo_descriptors_tpu_torch.device import resolve_device
@@ -146,8 +182,9 @@ def main(argv=None) -> int:
         resolve_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"--device {args.device}: {exc}") from exc
+    sops = _sharded_ops(args) if args.sharded else None
     if args.stream:
-        return _main_streamed(args)
+        return _main_streamed(args, sops)
 
     if args.synthetic:
         ny, nx = (int(v) for v in args.synthetic.lower().split("x"))
@@ -166,7 +203,7 @@ def main(argv=None) -> int:
             crop["x"] = slice(*args.crop_x)
         if args.crop_y:
             crop["y"] = slice(*args.crop_y)
-    sharded = TiledRunner(tile_rows=args.tiled, device=args.device) if args.tiled else None
+    sharded = TiledRunner(tile_rows=args.tiled, device=args.device) if args.tiled else sops
 
     args.outdir.mkdir(parents=True, exist_ok=True)
     common = dict(crop=crop, outdir=args.outdir, sharded=sharded,
@@ -199,8 +236,9 @@ def main(argv=None) -> int:
         elif name == "sx":
             sx_args = dict(height=args.sx_height, **common)
             if len(args.sx_azimuths) > 1:
-                # the whole fan in one sweep (the tiled runner sends each
-                # band's window to the device once for all azimuths)
+                # the whole fan in one sweep (the mesh exchanges the ray
+                # halo once for all azimuths, the tiled runner sends each
+                # band's window to the device once)
                 written += pipeline.compute_sx_sweep(dem_ds, args.sx_azimuths, args.sx_radius,
                                                      **sx_args)
             else:

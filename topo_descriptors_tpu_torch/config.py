@@ -10,17 +10,31 @@ The reference loads two knobs from ``config/topo_descriptors.conf`` via
 * ``scale_std = 4`` — number of Gaussian standard deviations per unit scale,
   i.e. ``sigma = scale_pxl / 4`` (reference topo.py:49,573; helpers.py:131)
 
-The other fields are the JAX package's routing thresholds and valley/ridge
-memory budgets. Overrides come from a simple ``key: value`` conf file named
-by ``TOPO_TPU_CONFIG`` (the variable the JAX package reads, so one file
-steers both).
+The other fields are the mesh layout, the JAX package's routing thresholds
+and valley/ridge memory budgets. Overrides come from a simple ``key:
+value`` conf file named by ``TOPO_TPU_CONFIG`` (the variable the JAX
+package reads, so one file steers both).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from pathlib import Path
+from typing import Optional, Tuple
+
+
+def parse_mesh_shape(value: str) -> Optional[Tuple[int, int]]:
+    """``"2x4"``, ``"2, 4"`` or ``"2 4"`` -> (2, 4); ``"none"`` or ``""`` ->
+    None. The JAX package keeps the conf text as a string, which its
+    ``make_mesh`` cannot use."""
+    if value.strip().lower() in ("", "none"):
+        return None
+    parts = [p for p in re.split(r"[x,\s()]+", value.strip().lower()) if p]
+    if len(parts) != 2:
+        raise ValueError(f"mesh_shape {value!r}: expected two integers, e.g. 2x4")
+    return int(parts[0]), int(parts[1])
 
 
 @dataclasses.dataclass
@@ -29,7 +43,9 @@ class Config:
     min_elevation: float = -100.0
     scale_std: float = 4.0
 
-    # --- routing and memory knobs (no reference analogue) ---
+    # --- mesh, routing and memory knobs (no reference analogue) ---
+    # Preferred 2-D device mesh layout (gy, gx); None = near-square.
+    mesh_shape: Optional[Tuple[int, int]] = None
     # Compute dtype for descriptor math on device.
     compute_dtype: str = "float32"
     # Use FFT convolution when the kernel area exceeds this many taps.
@@ -73,7 +89,9 @@ class Config:
             if not hasattr(cfg, key):
                 continue
             field_type = type(getattr(cfg, key))
-            if field_type is bool:
+            if key == "mesh_shape":
+                cfg.mesh_shape = parse_mesh_shape(value)
+            elif field_type is bool:
                 setattr(cfg, key, value.lower() in ("1", "true", "yes"))
             elif field_type in (int, float):
                 setattr(cfg, key, field_type(float(value)))

@@ -9,6 +9,7 @@ from topo_descriptors_tpu_torch.ops.conv import (
     conv2d_same,
     conv2d_same_batch,
     conv2d_valid,
+    conv2d_valid_bank,
     convolve_reflect,
     gaussian_filter,
     gradient_axis,
@@ -25,6 +26,7 @@ __all__ = [
     "conv2d_same",
     "conv2d_same_batch",
     "conv2d_valid",
+    "conv2d_valid_bank",
     "conv2d_bank_rowchan",
     "convolve_reflect",
     "gaussian_filter",

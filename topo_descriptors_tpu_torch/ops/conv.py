@@ -5,8 +5,7 @@ targets: ``scipy.signal.convolve(mode='same')`` for :func:`conv2d_same`
 and the bank forms, ``scipy.ndimage.gaussian_filter`` (truncate=4.0,
 'reflect') for :func:`gaussian_filter`, ``scipy.ndimage.convolve`` for
 :func:`convolve_reflect` and ``np.gradient`` for :func:`gradient_axis`.
-Library convolutions run in full float32 (:func:`full_float32`); the
-sharded-only ``conv2d_valid_bank`` waits for the multi-device port.
+Library convolutions run in full float32 (:func:`full_float32`).
 {0,1}-valued kernels (disks) go through the prefix-sum convolution of
 :mod:`.cuda.disk_sat` — the hand-written CUDA kernel for CUDA tensors, its
 plain twin for CPU tensors. The routing thresholds are the shared ``CFG``
@@ -251,6 +250,30 @@ def conv2d_same_batch(x: torch.Tensor, kernels, method: str = "auto") -> torch.T
     return out[0]
 
 
+def conv2d_valid_bank(x: torch.Tensor, kernels, method: str = "auto") -> torch.Tensor:
+    """VALID-mode true convolution of one 2-D field with a (n, kh, kw)
+    kernel bank -> (n, H-kh+1, W-kw+1): one batched FFT with the field
+    transform computed once (``'fft'``), or one library convolution with
+    the bank as output channels in full float32 (``'direct'``); ``'auto'``
+    picks by the kernel's area, as the JAX package's function does."""
+    kernels = _bank_tensor(kernels, x)
+    n, kh, kw = kernels.shape
+    if method == "auto":
+        method = "fft" if kh * kw >= CFG.fft_conv_min_taps else "direct"
+    h, w = x.shape
+    if method == "fft":
+        fh, fw = _fft_shape(h), _fft_shape(w)
+        fx = torch.fft.rfft2(x, s=(fh, fw))
+        fk = torch.fft.rfft2(kernels, s=(fh, fw))
+        full = torch.fft.irfft2(fx[None] * fk, s=(fh, fw))
+        return full[:, kh - 1 : h, kw - 1 : w].to(x.dtype)
+    if method != "direct":
+        raise ValueError(f"unknown method {method!r}: expected auto, fft or direct")
+    with full_float32():
+        out = F.conv2d(x[None, None], torch.flip(kernels, (1, 2))[:, None])
+    return out[0]
+
+
 def conv2d_bank_rowchan(x: torch.Tensor, kernels, padding: str = "same") -> torch.Tensor:
     """Kernel-bank convolution with the kernel rows as input channels:
     ``out[o,i,j] = sum_{r,u} x[i+r-lo, j+u-lo] * flip(k)[o,r,u]``, one
@@ -372,7 +395,7 @@ def gradient_axis(x: torch.Tensor, axis: int, edge_order: str = "one_sided") -> 
 # --- exact boundary count plane ---------------------------------------------
 
 
-def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device) -> torch.Tensor:
+def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device, window) -> torch.Tensor:
     """``conv2d_same(ones(shape), kernel)`` for {0,1} kernels: each group of
     rows sharing a run contributes (in-bounds source rows at output row y)
     x (in-bounds columns of the run at output column x), a rank-1 term.
@@ -381,24 +404,25 @@ def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device) -> torch.Te
     (G, W) product on ``device``: every factor and partial sum is an integer
     below 2^24, so the float32 result is exact in any summation order."""
     h, w = shape
+    (r0, r1), (c0, c1) = window
     kh, kw = np.asarray(kernel).shape
     sy, sx_ = (kh - 1) // 2, (kw - 1) // 2
     ly, lx = kh - 1 - sy, kw - 1 - sx_
 
     groups = disk_sat.group_runs(runs)
     if not groups:
-        return torch.zeros((h, w), dtype=torch.float32, device=device)
+        return torch.zeros((r1 - r0, c1 - c0), dtype=torch.float32, device=device)
     rows = np.array([r for _, _, grows in groups for r in grows])
     owner = np.repeat(np.arange(len(groups)), [len(grows) for _, _, grows in groups])
     a = np.array([g[0] for g in groups])[:, None]
     bcol = np.array([g[1] for g in groups])[:, None]
     # source rows live at padded rows [ly, ly+h); run row = y + r
-    y = np.arange(h)[:, None] + rows[None, :]
+    y = np.arange(r0, r1)[:, None] + rows[None, :]
     inside = ((y >= ly) & (y < ly + h)).astype(np.float32)  # (H, runs)
     rvecs = inside @ np.eye(len(groups), dtype=np.float32)[owner]  # (H, G)
     # run cols x+a..x+bcol (padded, sentinel-shifted: +1); sources at
     # padded cols [lx+1, lx+1+w)
-    x = np.arange(w)[None, :]
+    x = np.arange(c0, c1)[None, :]
     hi = np.minimum(x + bcol + 1, lx + w)
     lo = np.maximum(x + a + 1, lx + 1)
     cvecs = np.maximum(hi - lo + 1, 0).astype(np.float32)  # (G, W)
@@ -407,14 +431,16 @@ def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device) -> torch.Te
     return rmat @ cmat
 
 
-def edge_count_plane_device(shape, kernel: np.ndarray, device) -> torch.Tensor:
+def edge_count_plane_device(shape, kernel: np.ndarray, device, window=None) -> torch.Tensor:
     """Exact ``conv2d_same(ones(shape), kernel)`` built on ``device``: the
     rank-1 run form for {0,1} kernels, else lookups into the kernel's
-    integral image."""
+    integral image. ``window = ((r0, r1), (c0, c1))`` builds only those
+    rows and columns of the plane (a block of a sharded grid)."""
+    h, w = shape
+    window = ((0, h), (0, w)) if window is None else window
     runs = _binary_kernel_runs(np.asarray(kernel)[::-1, ::-1])
     if runs is not None:
-        return _edge_count_plane_rank1(shape, kernel, runs, device)
-    h, w = shape
+        return _edge_count_plane_rank1(shape, kernel, runs, device, window)
     kernel = np.asarray(kernel, dtype=np.float64)
     kh, kw = kernel.shape
     sh, sw = (kh - 1) // 2, (kw - 1) // 2
@@ -422,8 +448,8 @@ def edge_count_plane_device(shape, kernel: np.ndarray, device) -> torch.Tensor:
     integral[1:, 1:] = kernel.cumsum(0).cumsum(1)
     table = upload(integral, device)
 
-    y = torch.arange(h, device=device)
-    x = torch.arange(w, device=device)
+    y = torch.arange(*window[0], device=device)
+    x = torch.arange(*window[1], device=device)
     m0 = torch.clamp(y + sh - (h - 1), 0, kh)
     m1 = torch.clamp(y + sh + 1, 0, kh)
     n0 = torch.clamp(x + sw - (w - 1), 0, kw)

@@ -275,20 +275,9 @@ def valley_ridge_streamed(
     if mode not in ("valley", "ridge"):
         raise ValueError(f"Unknown mode {mode!r}")
     dem = _standardized(as_field(dem, device), sigma, stats)
-    base = ridge_kernels(size, flat_list) if mode == "ridge" else valley_kernels(size, flat_list)
     n_flats = len(flat_list)
-    ky_max, kx_max = rotated_extent(size, np.arange(n_angles))
-    kmax = max(ky_max, kx_max)
+    kmax, qparams, slot_angle, slot_valid, q_batch = streamed_schedule(size, n_angles, q_batch)
     h, w = dem.shape
-
-    q_angles, slot_angle, slot_valid = quadrant_schedule(n_angles)
-    qparams = np.stack([rotation_params(size, float(q), kmax, kmax) for q in q_angles])
-    q_batch = max(1, min(int(q_batch), len(q_angles)))
-    if pad := (-len(q_angles)) % q_batch:
-        # pad with all-invalid slots so every step holds q_batch angles
-        qparams = np.concatenate([qparams, np.repeat(qparams[:1], pad, 0)])
-        slot_angle = np.concatenate([slot_angle, np.zeros((pad, 4), np.float32)])
-        slot_valid = np.concatenate([slot_valid, np.zeros((pad, 4), bool)])
 
     conv = conv_method
     if conv == "auto":
@@ -304,29 +293,58 @@ def valley_ridge_streamed(
     else:
         raise ValueError(f"unknown conv_method {conv_method!r}: expected auto, mm or fft")
 
-    def table():
-        return build_rotation_table(prefilter2d_o2(upload(base.astype(np.float32), dem.device)))
+    canvas_of = quadrant_canvases(size, mode, flat_list, n_angles, q_batch, qparams, kmax,
+                                  dem.device)
+    norm, direction = _streamed_scan(canvas_of, conv_fn, qparams, slot_angle, slot_valid,
+                                     q_batch, n_flats, (h, w), dem.device)
+    return [torch.clamp(norm, min=0.0), direction]
 
-    stack_bytes = qparams.shape[0] * n_flats * kmax * kmax * 4
-    if stack_bytes <= CFG.valley_canvas_cache_bytes:
-        ckey = (size, mode, tuple(float(f) for f in flat_list), n_angles, n_flats,
-                q_batch, dem.device)
+
+def streamed_schedule(size: int, n_angles: int = 180, q_batch: int = 4):
+    """``(kmax, qparams, slot_angle, slot_valid, q_batch)`` of the streamed
+    route: the rotated extent's square canvas side, one rotation-parameter
+    row per quadrant angle, each angle's four slots, and the schedule
+    padded with all-invalid slots so that every step holds ``q_batch``
+    angles."""
+    ky_max, kx_max = rotated_extent(size, np.arange(n_angles))
+    kmax = max(ky_max, kx_max)
+    q_angles, slot_angle, slot_valid = quadrant_schedule(n_angles)
+    qparams = np.stack([rotation_params(size, float(q), kmax, kmax) for q in q_angles])
+    q_batch = max(1, min(int(q_batch), len(q_angles)))
+    if pad := (-len(q_angles)) % q_batch:
+        qparams = np.concatenate([qparams, np.repeat(qparams[:1], pad, 0)])
+        slot_angle = np.concatenate([slot_angle, np.zeros((pad, 4), np.float32)])
+        slot_valid = np.concatenate([slot_valid, np.zeros((pad, 4), bool)])
+    return kmax, qparams, slot_angle, slot_valid, q_batch
+
+
+def quadrant_canvases(size, mode, flat_list, n_angles, q_batch, qparams, kmax, device) -> Callable:
+    """``canvas_of(q)``: quadrant angle ``q``'s rotated, folded canvas on
+    ``device``. The stack is cached per (size, mode, flats, device) while
+    it fits ``CFG.valley_canvas_cache_bytes`` (2 stacks at most); larger
+    stacks are rotated inline, step by step."""
+    base = ridge_kernels(size, flat_list) if mode == "ridge" else valley_kernels(size, flat_list)
+
+    def table():
+        return build_rotation_table(prefilter2d_o2(upload(base.astype(np.float32), device)))
+
+    n_flats = len(flat_list)
+    if qparams.shape[0] * n_flats * kmax * kmax * 4 <= CFG.valley_canvas_cache_bytes:
+        ckey = (size, mode, tuple(float(f) for f in flat_list), n_angles, n_flats, q_batch,
+                torch.device(device))
         canvases = _CANVAS_DEV_CACHE.get(ckey)
         if canvases is None:
             tab = table()
             canvases = torch.stack([_rotate_folded(tab, size, p, kmax) for p in qparams])
             _evict_to(_CANVAS_DEV_CACHE, 2)
             _CANVAS_DEV_CACHE[ckey] = canvases
-        canvas_of = canvases.__getitem__
-    else:
-        tab = table()
+        return canvases.__getitem__
+    tab = table()
 
-        def canvas_of(q):
-            return _rotate_folded(tab, size, qparams[q], kmax)
+    def canvas_of(q):
+        return _rotate_folded(tab, size, qparams[q], kmax)
 
-    norm, direction = _streamed_scan(canvas_of, conv_fn, qparams, slot_angle, slot_valid,
-                                     q_batch, n_flats, (h, w), dem.device)
-    return [torch.clamp(norm, min=0.0), direction]
+    return canvas_of
 
 
 def valley_ridge(

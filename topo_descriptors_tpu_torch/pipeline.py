@@ -6,9 +6,9 @@ the descriptor ops on ``device`` (default ``"cuda"``), reassigns the
 original NaNs, optionally crops, and writes one NetCDF per descriptor
 through the shared ``io.netcdf.to_netcdf`` with the reference's naming.
 Signatures match the JAX drivers plus ``device=``. ``sharded=`` takes a
-:class:`~topo_descriptors_tpu_torch.parallel.TiledRunner` (out-of-core
-bands on the runner's device); the multi-device ShardedOps mesh is not
-ported yet. The drivers: ``compute_dem``,
+:class:`~topo_descriptors_tpu_torch.parallel.ShardedOps` (the blocks of
+a device mesh) or a :class:`~topo_descriptors_tpu_torch.parallel.TiledRunner`
+(out-of-core bands on the runner's device). The drivers: ``compute_dem``,
 ``compute_tpi``, ``compute_std``, ``compute_tpi_std``,
 ``compute_valley_ridge``, ``compute_gradient``, ``compute_sx`` and
 ``compute_sx_sweep``.
@@ -29,6 +29,9 @@ from topo_descriptors_tpu_torch.device import as_field, resolve_device
 from topo_descriptors_tpu_torch.grid import Raster, check_dem
 from topo_descriptors_tpu_torch.io.netcdf import to_netcdf
 from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
+from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes
+from topo_descriptors_tpu_torch.parallel.mesh import pad_to_mesh
+from topo_descriptors_tpu_torch.parallel.sharded import ShardedOps
 from topo_descriptors_tpu_torch.parallel.tiles import TiledRunner
 from topo_descriptors_tpu_torch.utils.timing import timer
 
@@ -55,32 +58,60 @@ def _existing(name: str, outdir) -> Optional[Path]:
     return path if path.exists() else None
 
 
-def _compute_backend(dem_val, backend, device):
-    """The DEM as the backend takes it.
+def _compute_backend(dem_val, backend, device, ragged_fill=None):
+    """``(array for the backend, to_host, valid_shape)``.
 
     ``backend=None`` (one pass on one device): a tensor on ``device``. A
     :class:`TiledRunner`: the float32 host array, which the runner streams
-    to its own device in bands; ``device`` must resolve to that device.
-    The JAX package's ShardedOps mesh is ROADMAP item A13 and raises.
+    to its own device in bands. A :class:`ShardedOps`: the DEM placed on
+    its mesh. ``device`` must resolve to the runner's device or to one of
+    the mesh's.
+
+    ``valid_shape`` is the grid's shape. It differs from the array's only
+    on a mesh that the grid does not divide: the DEM is then padded
+    bottom/right with ``ragged_fill`` (``pad_to_mesh``) and ``to_host``
+    crops back. A driver whose op has no exact padded form passes
+    ``ragged_fill=None`` and gets an actionable error instead.
     """
+    dem_val = np.asarray(dem_val, dtype=CFG.compute_dtype)
+    shape = dem_val.shape
     if backend is None:
-        return as_field(np.asarray(dem_val, dtype=CFG.compute_dtype), device)
-    if not isinstance(backend, TiledRunner):
-        raise NotImplementedError(
-            "the ShardedOps mesh backend is not ported to PyTorch yet (ROADMAP "
-            "A13); pass sharded=None or a topo_descriptors_tpu_torch.parallel."
-            "TiledRunner"
-        )
-    if resolve_device(device) != backend.device:
-        raise ValueError(
-            f"device={device!r} but the TiledRunner runs on {backend.device}; "
-            "pass the runner's device"
-        )
-    return np.asarray(dem_val, dtype=CFG.compute_dtype)
+        return as_field(dem_val, device), _to_host, shape
+    if isinstance(backend, TiledRunner):
+        if resolve_device(device) != backend.device:
+            raise ValueError(f"device={device!r} but the TiledRunner runs on {backend.device}; "
+                             "pass the runner's device")
+        return dem_val, np.asarray, shape
+    if not isinstance(backend, ShardedOps):
+        raise TypeError(f"sharded= takes a ShardedOps or a TiledRunner, not "
+                        f"{type(backend).__name__}")
+    if resolve_device(device) not in backend.mesh.local_devices():
+        raise ValueError(f"device={device!r} but the mesh's blocks live on "
+                         f"{sorted(set(map(str, backend.mesh.local_devices())))}; pass one of them")
+    h, w = shape
+    if h % backend.gy or w % backend.gx:
+        if ragged_fill is None:
+            raise ValueError(
+                f"grid {shape} does not divide the ({backend.gy}, {backend.gx}) mesh and this "
+                "descriptor has no exact padded formulation; choose a mesh shape that divides "
+                "the grid or use the tiled runner")
+        dem_val, _ = pad_to_mesh(dem_val, backend.mesh, fill=ragged_fill)
+
+    def to_host(a):
+        return np.asarray(a.numpy())[..., :h, :w]
+
+    return backend.put(dem_val), to_host, shape
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _valid_kwargs(backend, array, valid_shape) -> dict:
+    """``valid_shape=`` for a ShardedOps call on a padded grid."""
+    if isinstance(backend, ShardedOps) and tuple(array.shape) != tuple(valid_shape):
+        return {"valid_shape": valid_shape}
+    return {}
 
 
 # --- naming (reference topo.py:83-85, 184-188, 310-314, 456-463, 647-655,
@@ -140,7 +171,8 @@ def compute_dem(
     scales = _as_list(scales)
     scales_pxl, _ = geo.scale_to_pixel(scales, dem_ds)
     sigmas = scales_pxl / CFG.scale_std
-    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    dem_dev, to_host, valid_shape = _compute_backend(dem_ds.data, sharded, device, 0.0)
+    vs = _valid_kwargs(sharded, dem_dev, valid_shape)
 
     written = []
     for idx, sigma in enumerate(sigmas):
@@ -152,9 +184,9 @@ def compute_dem(
         logger.info(f"Computing scale {scales[idx]} meters")
         with timer(f"dem scale {scales[idx]}m"):
             if sharded is None:
-                array = _to_host(ops.dem(dem_dev, float(sigma), device=dem_dev.device))
+                array = to_host(ops.dem(dem_dev, float(sigma), device=dem_dev.device))
             else:
-                array = sharded.gaussian(dem_dev, float(sigma))
+                array = to_host(sharded.gaussian(dem_dev, float(sigma), **vs))
         array = _apply_nans(array, ind_nans)
         written.append(to_netcdf(array, dem_ds, name, crop, outdir, "m"))
     return written
@@ -178,8 +210,11 @@ def _compute_disk_family(
     :func:`ops.disk_descriptors` batch when there are several of them or
     both kinds are asked for; a lone (scale, kind) runs :func:`ops.tpi` or
     :func:`ops.std`. Output files keep the reference's per-(descriptor,
-    scale) contract. A :class:`TiledRunner` backend runs the same grouping
-    banded.
+    scale) contract. A :class:`TiledRunner` or :class:`ShardedOps` backend
+    runs the same grouping banded or on the mesh; a ragged grid is
+    zero-padded to the mesh, and the valid-aware sharded ops (true-edge
+    reflection, masked centring, the true grid's tap counts) keep the
+    cropped result the single pass's.
     """
     check_dem(dem_ds)
     scales = _as_list(scales)
@@ -199,7 +234,8 @@ def _compute_disk_family(
             else:
                 pending.setdefault(idx, []).append(kind)
 
-    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    dem_dev, to_host, valid_shape = _compute_backend(dem_ds.data, sharded, device, 0.0)
+    vs = _valid_kwargs(sharded, dem_dev, valid_shape)
 
     def write(kind, idx, array):
         array = _apply_nans(array, ind_nans)
@@ -223,9 +259,9 @@ def _compute_disk_family(
                 if sharded is None:
                     batch = ops.disk_descriptors(dem_dev, sizes, sigma, device=dem_dev.device,
                                                  **kwargs)
-                    batch = {k: _to_host(v) for k, v in batch.items()}
                 else:
-                    batch = sharded.disk_descriptors(dem_dev, sizes, sigma, **kwargs)
+                    batch = sharded.disk_descriptors(dem_dev, sizes, sigma, **vs, **kwargs)
+                batch = {k: to_host(v) for k, v in batch.items()}
             for j, idx in enumerate(idxs):
                 for kind in kk:
                     write(kind, idx, batch[kind][j])
@@ -239,14 +275,12 @@ def _compute_disk_family(
                 with timer(f"{kind} scale {scales[idx]}m"):
                     if sharded is None:
                         op = ops.tpi if kind == "tpi" else ops.std
-                        array = _to_host(
-                            op(dem_dev, int(scales_pxl[idx]), sigmas[idx],
-                               device=dem_dev.device)
-                        )
+                        array = op(dem_dev, int(scales_pxl[idx]), sigmas[idx],
+                                   device=dem_dev.device)
                     else:
                         op = sharded.tpi if kind == "tpi" else sharded.std
-                        array = op(dem_dev, int(scales_pxl[idx]), sigmas[idx])
-                write(kind, idx, array)
+                        array = op(dem_dev, int(scales_pxl[idx]), sigmas[idx], **vs)
+                write(kind, idx, to_host(array))
 
     return [
         written[(kind, idx)] for kind in kinds for idx in range(len(scales))
@@ -329,14 +363,17 @@ def compute_valley_ridge(
     """Valley/ridge index at each scale (reference compute_valley_ridge,
     topo.py:317-386). :func:`ops.valley_ridge` picks the route: the
     precomputed bank within ``CFG.valley_bank_max_bytes``, the streamed
-    on-device rotation above it."""
+    on-device rotation above it; a :class:`ShardedOps` backend takes the
+    same choice between its ``valley_ridge`` and ``valley_ridge_streamed``,
+    a :class:`TiledRunner` makes it per band."""
     check_dem(dem_ds)
     logger.info(f"***Starting {mode} index computation for scales {scales} meters***")
     scales = _as_list(scales)
     smth_factors = _as_list(smth_factors, len(scales))
     scales_pxl, _ = geo.scale_to_pixel(scales, dem_ds)
     sigmas = geo.get_sigmas(smth_factors, scales_pxl)
-    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    dem_dev, to_host, valid_shape = _compute_backend(dem_ds.data, sharded, device, 0.0)
+    vs = _valid_kwargs(sharded, dem_dev, valid_shape)
 
     written = []
     for idx, scale_pxl in enumerate(scales_pxl):
@@ -356,11 +393,15 @@ def compute_valley_ridge(
                     dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx],
                     device=dem_dev.device,
                 )
-                arrays = [_to_host(a) for a in arrays]
+            elif isinstance(sharded, ShardedOps):
+                fits = bank_nbytes(int(scale_pxl), len(flat_list)) <= CFG.valley_bank_max_bytes
+                op = sharded.valley_ridge if fits else sharded.valley_ridge_streamed
+                arrays = op(dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx], **vs)
             else:  # routes by the bank budget per band, as the op does
                 arrays = sharded.valley_ridge(
                     dem_dev, int(scale_pxl), mode, list(flat_list), sigmas[idx]
                 )
+            arrays = [to_host(a) for a in arrays]
         for array, name in zip(arrays, names):
             array = _apply_nans(array, ind_nans)
             written.append(to_netcdf(array, dem_ds, name, crop, outdir, "1"))
@@ -386,7 +427,8 @@ def compute_gradient(
     sig_ratios = _as_list(sig_ratios, len(scales))
     scales_pxl, res_meters = geo.scale_to_pixel(scales, dem_ds)
     sigmas = scales_pxl / CFG.scale_std
-    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    dem_dev, to_host, valid_shape = _compute_backend(dem_ds.data, sharded, device, 0.0)
+    vs = _valid_kwargs(sharded, dem_dev, valid_shape)
     all_units = ["1", "1", "degree", "degree"]
 
     written = []
@@ -406,9 +448,10 @@ def compute_gradient(
                 arrays = ops.gradient(
                     dem_dev, float(sigma), res_meters, sig_ratios[idx], device=dem_dev.device
                 )
-                arrays = [_to_host(a) for a in arrays]
             else:
-                arrays = sharded.gradient(dem_dev, float(sigma), res_meters, sig_ratios[idx])
+                arrays = sharded.gradient(dem_dev, float(sigma), res_meters, sig_ratios[idx],
+                                          **vs)
+            arrays = [to_host(a) for a in arrays]
         for array, name, units in zip(arrays, names, all_units):
             array = _apply_nans(array, ind_nans)
             written.append(to_netcdf(array, dem_ds, name, crop, outdir, units))
@@ -429,10 +472,12 @@ def sx(
     """Sx horizon scan for one azimuth (reference sx, topo.py:776-858).
 
     Takes the full Raster: the geometry needs the grid's metric resolution.
+    On a mesh that the grid does not divide, the DEM is padded with NaN,
+    which the ray maximum skips as it skips the beyond-edge fill.
     """
     if not isinstance(dem_ds, Raster):
         raise TypeError("Argument 'dem_ds' must be a Raster.")
-    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    dem_dev, to_host, valid_shape = _compute_backend(dem_ds.data, sharded, device, np.nan)
     _, res_meters = geo.scale_to_pixel(radius, dem_ds)
     dx = float(res_meters["x"].mean())
     dy = float(res_meters["y"].mean())
@@ -441,8 +486,9 @@ def sx(
     )
     with timer(f"sx az {azimuth} r {radius}m"):
         if sharded is not None:
-            return sharded.sx(dem_dev, offsets, distances, border, height)
-        return _to_host(
+            return to_host(sharded.sx(dem_dev, offsets, distances, border, height,
+                                      **_valid_kwargs(sharded, dem_dev, valid_shape)))
+        return to_host(
             ops.sx(dem_dev, offsets, distances, border, height,
                    device=dem_dev.device)
         )
@@ -473,7 +519,7 @@ def compute_sx_sweep(
     logger.info(
         f"***Starting Sx sweep for azimuths {azimuths} and radius {radius}***"
     )
-    dem_dev = _compute_backend(dem_ds.data, sharded, device)
+    dem_dev, to_host, valid_shape = _compute_backend(dem_ds.data, sharded, device, np.nan)
     _, res_meters = geo.scale_to_pixel(radius, dem_ds)
     dx = float(res_meters["x"].mean())
     dy = float(res_meters["y"].mean())
@@ -482,12 +528,12 @@ def compute_sx_sweep(
     )
     with timer(f"sx sweep {len(azimuths)} azimuths r {radius}m"):
         if sharded is None:
-            stack = _to_host(
-                ops.sx_sweep(dem_dev, offsets, distances, border, height,
-                             device=dem_dev.device)
-            )
-        else:  # each band's window goes to the device once for the fan
-            stack = sharded.sx_sweep(dem_dev, offsets, distances, border, height)
+            stack = ops.sx_sweep(dem_dev, offsets, distances, border, height,
+                                 device=dem_dev.device)
+        else:  # one halo exchange or one window per band for the whole fan
+            stack = sharded.sx_sweep(dem_dev, offsets, distances, border, height,
+                                     **_valid_kwargs(sharded, dem_dev, valid_shape))
+        stack = to_host(stack)
     return [
         to_netcdf(array, dem_ds, name, crop, outdir, "degree")
         for array, name in zip(stack, names)

@@ -23,8 +23,14 @@ reassignment at the original holes, recomputed per band from the reader
 (the holes are row-local). A driver that fails aborts every writer it
 opened, so it leaves neither a final-named file nor a ``.partial`` one, and
 ``skip_existing`` can trust what exists. ``crop`` is not supported: crop
-the outputs afterwards or use the in-memory pipeline. The multi-device
-``*_sharded`` drivers are ROADMAP item A13.
+the outputs afterwards or use the in-memory pipeline.
+
+The ``*_sharded`` drivers read each process's blocks straight onto a
+device mesh (:func:`~topo_descriptors_tpu_torch.parallel.runtime.
+ingest_sharded`), run the descriptors as
+:class:`~topo_descriptors_tpu_torch.parallel.ShardedOps` methods and
+stream the outputs back to NetCDF in row bands, through the same aborting
+writers.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ from topo_descriptors_tpu_torch.grid import check_dem
 from topo_descriptors_tpu_torch.io.netcdf import RasterBandWriter
 from topo_descriptors_tpu_torch.io.windowed import DemWindowReader
 from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
+from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes
+from topo_descriptors_tpu_torch.parallel.runtime import ingest_sharded
 from topo_descriptors_tpu_torch.parallel.tiles import LockedReader, TiledRunner
 from topo_descriptors_tpu_torch.pipeline import (
     _as_list,
@@ -353,3 +361,196 @@ def compute_sx(dem, azimuths, radius: float, height: float = 10.0, azimuth_arc: 
                 azimuths, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
             runner.sx_sweep(dem, offsets, distances, border, height, sink=_StackSink(sinks))
     return [path for path, _ in opened]
+
+
+# --- windowed ingest -> device mesh ------------------------------------------
+
+
+def _fetch_banded(arr, valid_shape, sink, band_rows: int = 2048):
+    """Stream a sharded (H, W) array to ``sink`` in row bands, the ragged
+    pad cropped; no host array of the whole grid."""
+    vh, vw = valid_shape
+    for r0 in range(0, vh, band_rows):
+        sink(r0, arr[r0 : min(r0 + band_rows, vh), :vw])
+
+
+def _ingest(dem, sops, fill):
+    """(DEM on the mesh, valid_shape, ``valid_shape=`` for a padded grid)."""
+    dem_s, valid_shape = ingest_sharded(dem, sops.mesh, fill=fill)
+    padded = tuple(dem_s.shape) != tuple(valid_shape)
+    return dem_s, valid_shape, {"valid_shape": valid_shape} if padded else {}
+
+
+def _write_sharded(dem, arrays, names, units, outdir, valid_shape, reassign_nans, band_rows):
+    """Write each sharded (H, W) array to its output in row bands, through
+    writers that are all aborted if anything fails; the written paths."""
+    with _writers(dem, names, outdir, units) as opened:
+        for arr, (_, writer) in zip(arrays, opened):
+            _fetch_banded(arr, valid_shape, _Sink(writer, dem, reassign_nans), band_rows)
+    return [path for path, _ in opened]
+
+
+@_streams
+def compute_tpi_std_sharded(dem, scales, sops, kinds=("tpi", "std"), smth_factors=None,
+                            outdir=".", reassign_nans: bool = True, skip_existing: bool = False,
+                            band_rows: int = 2048):
+    """Windowed ingest -> device mesh -> banded NetCDF output, for TPI
+    and/or STD: each process reads only its blocks from disk, every sigma
+    group runs as one fused :meth:`ShardedOps.disk_descriptors` call, and
+    the outputs stream back in row bands."""
+    check_dem(dem)
+    logger.info(f"***Sharded-streaming {'+'.join(kinds)} for scales {scales} meters***")
+    scales = _as_list(scales)
+    smth_factors = _as_list(smth_factors, len(scales))
+    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
+    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
+    namers = {"tpi": _tpi_name, "std": _std_name}
+
+    written, pending = {}, []
+    for idx in range(len(scales)):
+        paths = [_skip(namers[k](scales[idx], smth_factors[idx]), outdir, skip_existing)
+                 for k in kinds]
+        if all(paths):
+            written.update({(k, idx): p for k, p in zip(kinds, paths)})
+        else:
+            pending.append(idx)
+    if pending:
+        dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
+        groups = {}
+        for idx in pending:
+            groups.setdefault(sigmas[idx], []).append(idx)
+        for sigma, idxs in groups.items():
+            with timer(f"{'+'.join(kinds)} sharded-streamed x{len(idxs)} scales"):
+                batch = sops.disk_descriptors(dem_s, [int(scales_pxl[i]) for i in idxs], sigma,
+                                              compute_tpi="tpi" in kinds,
+                                              compute_std="std" in kinds, **vs)
+                keys = [(k, j, i) for k in kinds for j, i in enumerate(idxs)]
+                paths = _write_sharded(
+                    dem, [batch[k][j] for k, j, _ in keys],
+                    [namers[k](scales[i], smth_factors[i]) for k, _, i in keys],
+                    ["m"] * len(keys), outdir, valid_shape, reassign_nans, band_rows)
+            written.update({(k, i): p for (k, _, i), p in zip(keys, paths)})
+    return [written[(k, i)] for k in kinds for i in range(len(scales))]
+
+
+@_streams
+def compute_dem_sharded(dem, scales, sops, outdir=".", reassign_nans: bool = True,
+                        skip_existing: bool = False, band_rows: int = 2048):
+    """Windowed-ingest sharded smoothed-DEM driver (see
+    :func:`compute_tpi_std_sharded`)."""
+    check_dem(dem)
+    scales = _as_list(scales)
+    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
+    sigmas = scales_pxl / CFG.scale_std
+    written, dem_s = [], None
+    for idx, sigma in enumerate(sigmas):
+        name = _dem_name(scales[idx])
+        if path := _skip(name, outdir, skip_existing):
+            written.append(path)
+            continue
+        if dem_s is None:
+            dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
+        with timer(f"dem scale {scales[idx]}m sharded-streamed"):
+            out = sops.gaussian(dem_s, float(sigma), **vs)
+            written += _write_sharded(dem, [out], [name], ["m"], outdir, valid_shape,
+                                      reassign_nans, band_rows)
+    return written
+
+
+@_streams
+def compute_gradient_sharded(dem, scales, sops, sig_ratios=1, outdir=".",
+                             reassign_nans: bool = True, skip_existing: bool = False,
+                             band_rows: int = 2048):
+    """Windowed-ingest sharded gradient/slope/aspect driver (reference
+    compute_gradient, topo.py:534-594): the four outputs of a scale come
+    from one :meth:`ShardedOps.gradient` call and stream back in row
+    bands."""
+    check_dem(dem)
+    logger.info(f"***Sharded-streaming gradients for scales {scales} meters***")
+    scales = _as_list(scales)
+    sig_ratios = _as_list(sig_ratios, len(scales))
+    scales_pxl, res_meters = geo.scale_to_pixel(scales, dem)
+    sigmas = scales_pxl / CFG.scale_std
+    written, dem_s = [], None
+    for idx, sigma in enumerate(sigmas):
+        names = _gradient_names(scales[idx], sig_ratios[idx])
+        paths = [_existing(n, outdir) for n in names]
+        if skip_existing and all(paths):
+            logger.info(f"skipping existing {paths}")
+            written.extend(paths)
+            continue
+        if dem_s is None:
+            dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
+        with timer(f"gradient scale {scales[idx]}m sharded-streamed"):
+            arrays = sops.gradient(dem_s, float(sigma), res_meters, sig_ratios[idx], **vs)
+            written += _write_sharded(dem, arrays, names, ["1", "1", "degree", "degree"], outdir,
+                                      valid_shape, reassign_nans, band_rows)
+    return written
+
+
+@_streams
+def compute_valley_ridge_sharded(dem, scales, sops, mode: str, flat_list=(0, 0.15, 0.3),
+                                 smth_factors=None, outdir=".", reassign_nans: bool = True,
+                                 skip_existing: bool = False, band_rows: int = 2048):
+    """Windowed-ingest sharded valley/ridge driver (reference
+    compute_valley_ridge, topo.py:317-386). Scales whose rotated bank fits
+    ``CFG.valley_bank_max_bytes`` run :meth:`ShardedOps.valley_ridge`,
+    larger ones :meth:`ShardedOps.valley_ridge_streamed`."""
+    check_dem(dem)
+    logger.info(f"***Sharded-streaming {mode} index for scales {scales} meters***")
+    scales = _as_list(scales)
+    smth_factors = _as_list(smth_factors, len(scales))
+    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
+    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
+    written, dem_s = [], None
+    for idx, scale_pxl in enumerate(scales_pxl):
+        names = _valley_ridge_names(scales[idx], mode, smth_factors[idx])
+        paths = [_existing(n, outdir) for n in names]
+        if skip_existing and all(paths):
+            logger.info(f"skipping existing {paths}")
+            written.extend(paths)
+            continue
+        if dem_s is None:
+            dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
+        size = int(scale_pxl)
+        fits = bank_nbytes(size, len(flat_list)) <= CFG.valley_bank_max_bytes
+        with timer(f"{mode} scale {scales[idx]}m sharded-streamed"):
+            op = sops.valley_ridge if fits else sops.valley_ridge_streamed
+            arrays = op(dem_s, size, mode, list(flat_list), sigmas[idx], **vs)
+            written += _write_sharded(dem, arrays, names, ["1", "1"], outdir, valid_shape,
+                                      reassign_nans, band_rows)
+    return written
+
+
+@_streams
+def compute_sx_sharded(dem, azimuths, radius: float, sops, height: float = 10.0,
+                       azimuth_arc: float = 10.0, azimuth_steps: int = 15,
+                       radius_min: float = 0.0, outdir=".", reassign_nans: bool = False,
+                       skip_existing: bool = False, band_rows: int = 2048):
+    """Windowed-ingest sharded Sx driver (reference compute_sx,
+    topo.py:715-772). A fan runs as one :meth:`ShardedOps.sx_sweep` call,
+    its ray halo exchanged once for every azimuth. A ragged grid is padded
+    with NaN, which the ray maximum skips as it skips the beyond-edge fill.
+    ``reassign_nans`` defaults off like the reference's sx wrapper."""
+    check_dem(dem)
+    azimuths = _as_list(azimuths)
+    names = [_sx_name(radius, a) for a in azimuths]
+    if skip_existing and all(_existing(n, outdir) for n in names):
+        return [_existing(n, outdir) for n in names]
+    logger.info(f"***Sharded-streaming Sx for azimuths {azimuths}, radius {radius}***")
+    _, res_meters = geo.scale_to_pixel(radius, dem)
+    dx = float(res_meters["x"].mean())
+    dy = float(res_meters["y"].mean())
+    dem_s, valid_shape, vs = _ingest(dem, sops, np.nan)
+    with timer(f"sx sharded-streamed {len(azimuths)} az r {radius}m"):
+        if len(azimuths) == 1:
+            offsets, distances, border = sx_offsets(
+                azimuths[0], radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
+            stack = [sops.sx(dem_s, offsets, distances, border, height, **vs)]
+        else:
+            offsets, distances, border = sx_sweep_offsets(
+                azimuths, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
+            out = sops.sx_sweep(dem_s, offsets, distances, border, height, **vs)
+            stack = [out[a] for a in range(len(azimuths))]
+        return _write_sharded(dem, stack, names, ["degree"] * len(names), outdir, valid_shape,
+                              reassign_nans, band_rows)

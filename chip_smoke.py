@@ -66,7 +66,26 @@ Phases, each printing its lines:
    output is held against the single pass (Sx and the sweep bit for bit)
    and every sharded call must launch ``disk_sat``, ``sx_block`` or
    ``sx_fan`` once per block and convolution;
-9. print the kernels' JSON line, then the result line.
+9. profiling and the reference's batch: calibrate the card's rates for
+   the valley routing cost model and the roofline (``conv_bank`` on the
+   2 km bank and the 20 km streamed kernels, the streamed FFT route's
+   convolution at 20 km and 100 km, the rotation-table gather) and print
+   them beside the constants in the code and the route each streamed
+   scale takes; hold ``Roofline`` floors against the Sx-500m kernel, the
+   2 km dftmm valley and the 20 km streamed valley (no floor may exceed
+   its time by more than 5%); trace ``compute_tpi(scales=[2000])`` with
+   ``utils.profiling.device_trace`` (the Chrome trace must hold a
+   ``disk_sat`` kernel); run ``examples.compute_topo_descriptors`` (every
+   family over the reference's 12 scales, 100 m to 100 km, valley/ridge
+   from 1 km) on the demo grid with phase 4's holes: the output names,
+   NaN holes and finite values elsewhere, ``disk_sat`` on both routes and
+   ``sx_block`` launched, TPI, STD and the valley index at 2 km against
+   phases 4 and 6; time it per family and scale (``Timings``,
+   ``throughput_report``) with the floors of the 30, 60 and 100 km
+   valley/ridge scales, and hold its 100 km valley index against the
+   streamed route the cost model did not pick; run ``examples.walkthrough``
+   where h5py is here;
+10. print the kernels' JSON line, then the result line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before it imports the port. Imports nothing of JAX.
@@ -76,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib.util
+import io
 import json
 import math
 import subprocess
@@ -537,17 +557,17 @@ def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-# Published peaks of one H100 SXM at its 700 W limit: float32 outside the
-# tensor cores, and HBM3 bandwidth. A kernel's bound is the larger of its
-# operations and its bytes (each input read once, each output written once)
-# over these rates.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-
-
 def bound(ops, nbytes):
     """(least ms, which term sets it) of ``ops`` float32 operations moving
-    ``nbytes`` through device memory."""
-    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ``nbytes`` through device memory: the larger of the two over the
+    published peaks of one H100 SXM at its 700 W limit (float32 outside the
+    tensor cores, HBM3), ``Roofline``'s defaults; each input read once,
+    each output written once."""
+    from topo_descriptors_tpu_torch.utils.profiling import Roofline
+
+    roof = Roofline()
+    t_ops = ops / (roof.fp32_tflops * 1e12) * 1e3
+    t_bytes = roof.hbm_light_speed_ms(nbytes)
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -923,23 +943,28 @@ def time_slice3(dem_ds, dem, suite, walls, smi_line):
     (n_bank, s_bank), (n_stream, s_stream) = valley_sizes(dem_ds).values()
     n_flats = len(VALLEY_FLATS)
     n_steps = -(-len(quadrant_schedule()[0]) // 4)  # the streamed route's q_batch 4
+    k_stream = max(rotated_extent(n_stream))
+    stream_route = streamed_route(*dem.shape, k_stream)
     valley = [
-        (f"ops.valley_ridge {BANK_M} m dftmm", max(rotated_extent(n_bank)), 180 * n_flats, 5,
+        (f"ops.valley_ridge {BANK_M} m dftmm", "mm", max(rotated_extent(n_bank)), 180 * n_flats, 5,
          lambda: ops.valley_ridge(dem, n_bank, "valley", VALLEY_FLATS, s_bank, method="dftmm",
                                   device=dem.device)),
-        (f"ops.valley_ridge {STREAM_M} m stream", max(rotated_extent(n_stream)),
+        (f"ops.valley_ridge {STREAM_M} m stream", stream_route, k_stream,
          n_steps * 4 * 4 * n_flats, 3,
          lambda: ops.valley_ridge(dem, n_stream, "valley", VALLEY_FLATS, s_stream, method="stream",
                                   device=dem.device)),
     ]
-    for label, kmax, n_kernels, reps, fn in valley:
+    for label, route, kmax, n_kernels, reps, fn in valley:
         clear_valley_caches()
         first = median_ms(fn, reps=1, warmup=0)
         warm = median_ms(fn, reps=reps, warmup=1)
-        macs = get_plan(*dem.shape, kmax, kmax, "same", dem.device).macs_per_kernel() * n_kernels
-        print(f"[time] {label} {grid} ({n_kernels} kernels of {kmax}^2, {macs:.4g} MACs): "
-              f"first call {first:.4f} ms, warm {warm:.4f} ms (median of {reps}, "
-              f"{macs / warm / 1e9:.3f} TMAC/s) on {smi_line}")
+        if route == "mm":
+            macs = get_plan(*dem.shape, kmax, kmax, "same", dem.device).macs_per_kernel() * n_kernels
+            rate = f"{macs:.4g} MACs, {macs / warm / 1e9:.3f} TMAC/s warm"
+        else:
+            rate = "an rfft2 and an irfft2 each"
+        print(f"[time] {label} {grid} ({route} route, {n_kernels} kernels of {kmax}^2, {rate}): "
+              f"first call {first:.4f} ms, warm {warm:.4f} ms (median of {reps}) on {smi_line}")
     for (driver, kwargs), wall in zip(slice3_calls(None), walls):
         shown = {k: v for k, v in kwargs.items() if k != "ind_nans"}
         print(f"[time] {driver}({shown}) {grid} wall {wall:.3f} s on {smi_line}")
@@ -958,7 +983,7 @@ def run_slice3(dem_ds, ind_nans, use_h5py, dem, crop, smi_line):
     check_valley(dem_ds, dem, main_out, crop)
     suite, launches = run_suite(dem_ds, dem)
     time_slice3(dem_ds, dem, suite, walls, smi_line)
-    return launches
+    return launches, main_out
 
 
 # --- phase 7: out of core on the card --------------------------------------------
@@ -1134,35 +1159,23 @@ def read_outputs(outdir, store):
         store[f"{Path(outdir).name}/{r.name}"] = r
 
 
-def device_busy_s(prof):
-    """Seconds in which the card ran a kernel or a copy: the union of the
-    device intervals of a torch.profiler trace; None if it holds none."""
-    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        return None
-    busy, (lo, hi) = 0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo, hi = busy + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    return (busy + hi - lo) / 1e9
-
-
 @contextlib.contextmanager
-def device_trace(on):
+def busy_seconds(on):
     """Yields a function that gives, after the block, the card's busy
-    seconds in it (:func:`device_busy_s`), or None when ``on`` is false."""
+    seconds in it (``utils.profiling.device_busy_s``: the union of the
+    device intervals of a torch.profiler trace, None if it holds none), or
+    None when ``on`` is false."""
     if not on:
         yield lambda: None
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from topo_descriptors_tpu_torch.utils.profiling import device_busy_s, device_spans
+
     result = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         yield lambda: result.get("busy")
-    result["busy"] = device_busy_s(prof)
+    result["busy"] = device_busy_s(device_spans(prof))
 
 
 def stream_drivers(path, calls, use_h5py, tmp, prefix, tile_rows, pipeline=True, profile=False):
@@ -1182,7 +1195,7 @@ def stream_drivers(path, calls, use_h5py, tmp, prefix, tile_rows, pipeline=True,
         for i, (driver, kwargs) in enumerate(calls):
             outdir = Path(tmp) / f"{prefix}{i}"
             with DemWindowReader(path) as reader:
-                with device_trace(profile) as busy:
+                with busy_seconds(profile) as busy:
                     reset_launches()
                     start = time.perf_counter()
                     getattr(streaming, driver)(reader, outdir=outdir, tile_rows=tile_rows,
@@ -1831,6 +1844,394 @@ def run_mesh(baso_ds, ragged_ds, big_np, dem_ds, ind_nans, use_h5py, smi_line, a
     return launches, times
 
 
+# --- phase 9: profiling and the reference batch on the card ----------------------
+
+SHARE_MAX = 1.05  # a floor above the measured time by more than this: the model is wrong
+STREAM_BATCH = 48  # kernels per step of the streamed route: 4 variants x q_batch 4 x 3 flats
+LARGEST_M = 100000  # the batch's largest scale: the second FFT calibration shape
+FLOOR_SCALES = (30000, 60000, LARGEST_M)  # batch valley/ridge scales shown beside their floors
+
+
+def roofline(cal=None):
+    """The port's ``Roofline``; with ``cal`` (from :func:`calibrate`), this
+    run's measured rates in place of the defaults."""
+    from topo_descriptors_tpu_torch.utils.profiling import Roofline
+
+    if cal is None:
+        return Roofline()
+    return Roofline(mm_tmacs=cal["mm_tmacs"], fft_tflops=cal["fft_tflops"],
+                    gather_rows_gps=cal["gather_rows_gps"])
+
+
+def valley_px(dem_ds, scale):
+    """(size px, the streamed route's square canvas side) of a valley scale."""
+    from topo_descriptors_tpu_torch.host import scale_to_pixel
+
+    vr = importlib.import_module("topo_descriptors_tpu_torch.ops.valley_ridge")
+    (size,), _ = scale_to_pixel([scale], dem_ds)
+    return int(size), vr.streamed_schedule(int(size))[0]
+
+
+def calibrate(dem_ds, dem, smi_line):
+    """The card's rates for the routing cost model and the roofline (CUDA
+    events, median of 20, of 3 for a call over 1 s; random kernels: the
+    rates do not depend on the values):
+
+    * ``mm_tmacs``: ``conv_bank`` on one chunk of the 2 km bank and on one
+      step (48 kernels) of the 20 km streamed route, the mix's MACs (the
+      roofline's formula, ``DftConvPlan.macs_per_kernel``) over its time;
+      ``mm_macs_per_sec`` is the same rate for ``prefer_dft_matmul``;
+    * ``fft_tflops``: the streamed FFT route's kernel convolution (rfft2,
+      spectral product, irfft2) on one step at the 5-smooth shapes of
+      20 km and 100 km, 5 N log2 N flops per transform; the faster shape's
+      rate, a ceiling that no case may beat. ``fft_sec_per_pt``: both
+      shapes' time over their transformed points, 2 per kernel as the cost
+      model counts them;
+    * ``gather_rows_gps``: the rotation-table gather of one 20 km canvas
+      (27-float rows), 1e9 rows per second.
+    """
+    from topo_descriptors_tpu_torch.config import CFG
+    from topo_descriptors_tpu_torch.device import upload
+    from topo_descriptors_tpu_torch.host import rotated_extent, valley_kernels
+    from topo_descriptors_tpu_torch.ops import dft_conv
+    from topo_descriptors_tpu_torch.ops.conv import _fft_shape
+    from topo_descriptors_tpu_torch.ops.spline_rotate import (
+        _footprints,
+        build_rotation_table,
+        prefilter2d_o2,
+    )
+
+    vr = importlib.import_module("topo_descriptors_tpu_torch.ops.valley_ridge")
+    h, w = dem.shape
+    z = (dem - dem.mean()) / dem.std()
+    gen = torch.Generator(device=dem.device).manual_seed(0)
+    n_bank, _ = valley_px(dem_ds, BANK_M)
+    n20, k20 = valley_px(dem_ds, STREAM_M)
+    _, k_largest = valley_px(dem_ds, LARGEST_M)
+
+    bank_plan = dft_conv.get_plan(h, w, *rotated_extent(n_bank), "same", dem.device)
+    per_angle = bank_plan.fh * bank_plan.nb * 8 * len(VALLEY_FLATS)  # the bank route's chunk
+    chunk = int(max(1, min(30, CFG.valley_chunk_bytes // per_angle)))
+    while 180 % chunk:
+        chunk -= 1
+    macs, mm_ms = 0, 0.0
+    for label, plan, batch in ((f"{BANK_M} m bank chunk", bank_plan, chunk * len(VALLEY_FLATS)),
+                               (f"{STREAM_M} m streamed step",
+                                dft_conv.get_plan(h, w, k20, k20, "same", dem.device),
+                                STREAM_BATCH)):
+        kernels = torch.randn((batch, *plan.kshape), generator=gen, device=dem.device)
+        fdr, fdi = dft_conv.field_spectrum(z, plan)
+        ms, reps = slow_median_ms(lambda: dft_conv.conv_bank(kernels, fdr, fdi, plan))
+        m = plan.macs_per_kernel() * batch
+        macs, mm_ms = macs + m, mm_ms + ms
+        print(f"[calib] conv_bank {label}: {batch} kernels of {plan.kshape[0]}x{plan.kshape[1]} "
+              f"on {h}x{w}, {m:.4g} MACs in {ms:.4f} ms (median of {reps}): "
+              f"{m / ms / 1e9:.4f} TMAC/s on {smi_line}")
+        del kernels, fdr, fdi
+    mm_tmacs = macs / mm_ms / 1e9
+
+    rates, fft_ms, points = [], 0.0, 0
+    for scale, kmax in ((STREAM_M, k20), (LARGEST_M, k_largest)):
+        conv = vr._fft_conv_fn(z, kmax)
+        fh, fw = _fft_shape(h + kmax - 1), _fft_shape(w + kmax - 1)
+        kernels = torch.randn((STREAM_BATCH, kmax, kmax), generator=gen, device=dem.device)
+        ms, reps = slow_median_ms(lambda: conv(kernels))
+        n = fh * fw
+        rates.append(STREAM_BATCH * 2 * 5.0 * n * math.log2(n) / ms / 1e9)
+        fft_ms, points = fft_ms + ms, points + STREAM_BATCH * 2 * n
+        print(f"[calib] FFT route conv {scale} m: {STREAM_BATCH} kernels of {kmax}^2 at {fh}x{fw} "
+              f"(5-smooth) in {ms:.4f} ms (median of {reps}): {rates[-1]:.4f} TFLOP/s "
+              f"(5 N log2 N per transform), {ms / 1e3 / (STREAM_BATCH * 2 * n):.6g} s per "
+              f"transformed point on {smi_line}")
+        del conv, kernels
+    torch.cuda.empty_cache()
+
+    table = build_rotation_table(prefilter2d_o2(upload(
+        valley_kernels(n20, VALLEY_FLATS).astype(np.float32), dem.device)))
+    qparams = vr.streamed_schedule(n20)[1]
+    _, ystart, xstart, _, _ = _footprints(n20, qparams[len(qparams) // 2], (k20, k20), dem.device)
+    idx = ((ystart + 1) * (n20 + 2) + (xstart + 1)).reshape(-1)
+    ms = median_ms(lambda: table[idx])
+    gather = idx.numel() / ms / 1e6
+    print(f"[calib] rotation-table gather {STREAM_M} m: {idx.numel()} rows of {table.shape[1]} "
+          f"floats in {ms:.4f} ms: {gather:.4f} G rows/s on {smi_line}")
+
+    cal = dict(mm_tmacs=mm_tmacs, fft_tflops=max(rates), gather_rows_gps=gather,
+               mm_macs_per_sec=mm_tmacs * 1e12, fft_sec_per_pt=fft_ms / 1e3 / points)
+    code = roofline()
+    print(f"[calib] measured: mm_tmacs {cal['mm_tmacs']:.4f} (in the code: Roofline "
+          f"{code.mm_tmacs}, _MM_MACS_PER_SEC {dft_conv._MM_MACS_PER_SEC:.6g}); fft_tflops "
+          f"{cal['fft_tflops']:.4f} (Roofline {code.fft_tflops}); fft_sec_per_pt "
+          f"{cal['fft_sec_per_pt']:.6g} (_FFT_SEC_PER_PT {dft_conv._FFT_SEC_PER_PT:.6g}); "
+          f"gather_rows_gps {cal['gather_rows_gps']:.4f} (Roofline {code.gather_rows_gps}) "
+          f"on {smi_line}")
+    return cal
+
+
+def streamed_route(h, w, kmax, **rates):
+    """'mm' or 'fft': what ``prefer_dft_matmul`` picks for a kmax canvas on
+    an (h, w) field, with the code's constants or the given ``rates``."""
+    from topo_descriptors_tpu_torch.ops import dft_conv
+
+    return "mm" if dft_conv.prefer_dft_matmul(h, w, kmax, kmax, **rates) else "fft"
+
+
+def print_routes(dem_ds, shape, cal, smi_line):
+    """The route at each valley/ridge scale of the batch: the bank, or the
+    streamed route's choice with the code's constants and with this run's,
+    beside the cost model's two times per kernel at this run's rates."""
+    from topo_descriptors_tpu_torch.config import CFG
+    from topo_descriptors_tpu_torch.examples.compute_topo_descriptors import SCALES_METERS
+    from topo_descriptors_tpu_torch.ops import dft_conv
+
+    vr = importlib.import_module("topo_descriptors_tpu_torch.ops.valley_ridge")
+    rates = dict(mm_macs_per_sec=cal["mm_macs_per_sec"], fft_sec_per_pt=cal["fft_sec_per_pt"])
+    for scale in SCALES_METERS[3:]:
+        size, kmax = valley_px(dem_ds, scale)
+        if vr.bank_nbytes(size, len(VALLEY_FLATS)) <= CFG.valley_bank_max_bytes:
+            print(f"[calib] {scale} m ({size} px) on {shape}: the bank route (dftmm)")
+            continue
+        t_mm, t_fft = dft_conv.route_seconds(*shape, kmax, kmax, **rates)
+        print(f"[calib] {scale} m ({size} px, kmax {kmax}) on {shape}: streamed route "
+              f"{streamed_route(*shape, kmax)} with the code's constants, "
+              f"{streamed_route(*shape, kmax, **rates)} with this run's (per kernel: mm "
+              f"{t_mm * 1e3:.4f} ms, fft {t_fft * 1e3:.4f} ms) on {smi_line}")
+
+
+def share_line(label, floor_ms, ms, method, smi_line, tag="roofline"):
+    """Print a floor beside a measured time and fail if the floor exceeds
+    it by more than SHARE_MAX; returns the share."""
+    share = floor_ms / ms
+    print(f"[{tag}] {label}: {ms:.4f} ms, floor ({method}) {floor_ms:.4f} ms, share of floor "
+          f"{share:.4f} on {smi_line}")
+    check(share <= SHARE_MAX, f"{label}: the {method} floor is {share:.4f} of the time; the "
+          f"model counts work the card did not do, or a ceiling is too low")
+    return share
+
+
+def check_roofline(dem_ds, dem, cal, smi_line):
+    """The roofline with this run's rates beside three measured times: the
+    Sx-500m kernel (grouped form), the 2 km dftmm valley and the 20 km
+    streamed valley on its route (cold: caches cleared; warm)."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import sx_dedupe, sx_offsets
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block
+
+    roof = roofline(cal)
+    h, w = dem.shape
+    grid = f"{h}x{w}"
+    o, d, b = sx_offsets(0.0, 500.0, 30.0, 30.0)
+    o, d = sx_dedupe(o, d)
+    rays, _, inv = sx_block.ray_groups(o, d)
+    share_line(f"Sx-500m sx_block {grid} ({len(rays)} rays, {len(inv)} groups)",
+               roof.sx_light_speed_ms(h * w, len(rays), len(inv)),
+               median_ms(lambda: sx_block.sx_block(dem, o, d, b, 10.0)), "grouped Sx", smi_line)
+    (n_bank, s_bank), (n_stream, s_stream) = valley_sizes(dem_ds).values()
+    ms, reps = slow_median_ms(lambda: ops.valley_ridge(
+        dem, n_bank, "valley", VALLEY_FLATS, s_bank, method="dftmm", device=dem.device))
+    share_line(f"valley {BANK_M} m dftmm {grid} (warm, median of {reps})",
+               roof.valley_ridge_light_speed_ms(h, w, n_bank, len(VALLEY_FLATS), 180, "mm_bank"),
+               ms, "mm_bank", smi_line)
+    route = streamed_route(h, w, valley_px(dem_ds, STREAM_M)[1])
+
+    def stream():
+        return ops.valley_ridge_streamed(dem, n_stream, "valley", VALLEY_FLATS, s_stream,
+                                         device=dem.device)
+
+    clear_valley_caches()
+    cold = median_ms(stream, reps=1, warmup=0)
+    warm = median_ms(stream, reps=3, warmup=1)
+    for label, ms, method in ((f"cold, {route} route", cold, "mm_stream" if route == "mm" else "fft"),
+                              (f"warm, {route} route", warm, "mm_cached" if route == "mm" else "fft")):
+        share_line(f"valley {STREAM_M} m streamed {grid} ({label})",
+                   roof.valley_ridge_light_speed_ms(h, w, n_stream, len(VALLEY_FLATS), 180, method),
+                   ms, method, smi_line)
+    return route
+
+
+def trace_tpi(dem_ds, ind_nans, use_h5py, smi_line):
+    """``device_trace`` around one ``compute_tpi(scales=[2000])``: the Chrome
+    trace must exist and hold a ``disk_sat`` kernel event."""
+    from topo_descriptors_tpu_torch.utils.profiling import device_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(Path(tmp) / "trace") as trace:
+            run_drivers(dem_ds, [("compute_tpi", dict(scales=[2000], ind_nans=ind_nans))],
+                        use_h5py, prefix="trace")
+            torch.cuda.synchronize()
+        check(trace.path.exists(), f"no trace at {trace.path}")
+        events = json.loads(trace.path.read_text())["traceEvents"]
+        size = trace.path.stat().st_size
+    names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    disk = [n for n in names if "disk_sat" in n]
+    check(bool(disk), f"the trace holds no disk_sat kernel event: {names}")
+    check(trace.busy_s is not None and trace.busy_s > 0, "the trace holds no device time")
+    print(f"[trace] compute_tpi(scales=[2000]) traced: {size} bytes, {len(events)} events, "
+          f"kernels {disk}; busy {trace.busy_s * 1e3:.4f} ms of {trace.wall_s * 1e3:.4f} ms wall "
+          f"(busy share {trace.busy_s / trace.wall_s:.4f}) on {smi_line}")
+
+
+def batch_names():
+    """The output variables of the batch at the reference's scales, as the
+    port's drivers name them (tests/test_torch_examples.py holds these
+    names to the JAX drivers')."""
+    from topo_descriptors_tpu_torch import pipeline as p
+    from topo_descriptors_tpu_torch.examples.compute_topo_descriptors import SCALES_METERS
+
+    scales = list(SCALES_METERS)
+    names = [p._dem_name(s) for s in scales]
+    names += [p._tpi_name(s, None) for s in scales] + [p._tpi_name(s, 1) for s in scales]
+    names += [n for s in scales for n in p._gradient_names(s, 1)]
+    names += [p._std_name(s, None) for s in scales]
+    for mode in ("valley", "ridge"):
+        names += [n.upper() for s in scales[3:] for n in p._valley_ridge_names(s, mode, 0.5)]
+    return names + [p._sx_name(1000, 0)]
+
+
+def batch_timings(dem_ds, shape, wall, cal, smi_line):
+    """Seconds and Mpixel/s per timer label (``throughput_report``), per
+    family, the total; the 30, 60 and 100 km valley/ridge scales beside the
+    floors of both streamed routes. Returns {label: seconds}."""
+    from topo_descriptors_tpu_torch.utils import Timings, throughput_report
+
+    pixels = shape[0] * shape[1]
+    report = throughput_report(pixels)
+    seconds = {label: sum(samples) for label, samples in Timings.samples.items()}
+    families = {}
+    for label, s in seconds.items():
+        print(f"[batch] {label}: {s:.4f} s, {report[label]:.4f} Mpixel/s on {smi_line}")
+        family = label.split()[0]
+        families[family] = families.get(family, 0.0) + s
+    print(f"[batch] per family (s): {json.dumps({k: round(v, 4) for k, v in families.items()})}; "
+          f"timed {sum(seconds.values()):.4f} s of {wall:.4f} s wall on {smi_line}")
+    roof = roofline(cal)
+    for mode in ("valley", "ridge"):
+        for scale in FLOOR_SCALES:
+            size, kmax = valley_px(dem_ds, scale)
+            ms = seconds[f"{mode} scale {scale}m"] * 1e3
+            route = streamed_route(*shape, kmax)
+            floors = {m: roof.valley_ridge_light_speed_ms(*shape, size, 3, 180, m)
+                      for m in ("mm_stream", "fft")}
+            method = "mm_stream" if route == "mm" else "fft"
+            other = "fft" if route == "mm" else "mm_stream"
+            share_line(f"{mode} {scale} m ({size} px, kmax {kmax}) in the batch, {route} route "
+                       f"(the {other} floor {floors[other]:.4f} ms)", floors[method], ms, method,
+                       smi_line, tag="batch")
+    return seconds
+
+
+def run_batch(raw_ds, ind_nans, use_h5py, phase4_out, phase6_out, cal, smi_line):
+    """The reference's batch (``examples.compute_topo_descriptors``, the
+    demo raster with phase 4's holes) on the card, with the kernel counts
+    set to 0 just before it and read just after. Returns the launches."""
+    from topo_descriptors_tpu_torch.examples.compute_topo_descriptors import (
+        SCALES_METERS,
+        compute_batch,
+    )
+    from topo_descriptors_tpu_torch.utils import Timings
+
+    shape = raw_ds.data.shape
+    holes = np.zeros(shape, bool)
+    holes[ind_nans] = True
+    store = {}
+    Timings.clear()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        if not use_h5py:
+            stack.enter_context(memory_writer(store))
+        reset_launches()
+        start = time.perf_counter()
+        files = compute_batch(raw_ds, SCALES_METERS, "cuda", Path(tmp) / "batch")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches, routes = read_launches(), read_route_launches()
+        if use_h5py:
+            read_outputs(Path(tmp) / "batch", store)
+    print(f"[batch] compute_topo_descriptors on {shape}, {len(SCALES_METERS)} scales: "
+          f"{len(files)} outputs in {wall:.3f} s, launches {launches}, per route {routes} "
+          f"on {smi_line}")
+    expected = batch_names()
+    got = sorted(k.split("/", 1)[1] for k in store)
+    check(len(files) == len(expected) and got == sorted(expected),
+          f"batch outputs {len(files)}: {sorted(set(got) ^ set(expected))}")
+    for key, raster in store.items():
+        a = raster.data
+        check(a.shape == shape and a.dtype == np.float32, f"{key}: {a.shape} {a.dtype}")
+        if "/SX_" in key:  # compute_sx takes no ind_nans, as the reference's
+            check(bool(np.isfinite(a).all()), f"{key}: not finite")
+        else:
+            check(bool(np.isnan(a[holes]).all()) and bool(np.isfinite(a[~holes]).all()),
+                  f"{key}: not NaN in the holes and finite elsewhere")
+    check(routes["disk_sat"]["fused"] > 0 and routes["disk_sat"]["wide"] > 0
+          and launches["sx_block"] > 0, f"the batch missed a kernel route: {routes}")
+    for kind, ours, ref in (("TPI", f"TPI_{BANK_M}M", f"call0/TPI_{BANK_M}M"),
+                            ("STD", f"STD_{BANK_M}M", f"call2/STD_{BANK_M}M")):
+        err, tol, unit = disk_sx_error(kind, store[f"batch/{ours}"].data, phase4_out[ref].data)
+        print(f"[batch] {ours} vs phase 4's {ref}: max|diff| {err:.6g} {unit} (tol {tol})")
+        check(err <= tol, f"batch {ours}: {err} > {tol}")
+    valley = [f"VALLEY_{k}_{BANK_M}M_SMTHFACT0.5" for k in ("NORM", "DIR")]
+    valley_agree(f"batch valley {BANK_M} m vs phase 6's s3call3",
+                 tuple(store[f"batch/{n}"].data for n in valley),
+                 tuple(phase6_out[f"s3call3/{n}"].data for n in valley), tag="batch")
+    batch_timings(raw_ds, shape, wall, cal, smi_line)
+    return launches, store
+
+
+def check_largest_routes(dem_ds, dem, store, smi_line):
+    """The batch's valley index at its largest scale against the streamed
+    route that the cost model did not pick, on the same filled DEM: the
+    routing constants may move a scale from one route to the other only
+    where both agree (phase 6's valley tolerances)."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import get_sigmas
+
+    size, kmax = valley_px(dem_ds, LARGEST_M)
+    (sigma,) = get_sigmas([0.5], [size])
+    route = streamed_route(*dem.shape, kmax)
+    other = "fft" if route == "mm" else "mm"
+    start = time.perf_counter()
+    out = host_pair(ops.valley_ridge_streamed(dem, size, "valley", VALLEY_FLATS, sigma,
+                                              conv_method=other, device=dem.device))
+    wall = time.perf_counter() - start
+    names = [f"batch/VALLEY_{k}_{LARGEST_M}M_SMTHFACT0.5" for k in ("NORM", "DIR")]
+    valley_agree(f"batch valley {LARGEST_M} m ({size} px, {route} route) vs the {other} route "
+                 f"({wall:.3f} s on {smi_line})", tuple(store[n].data for n in names), out,
+                 tag="batch")
+
+
+def run_walkthrough(raster, use_h5py):
+    """``examples.walkthrough`` on the card where h5py can write its NetCDF
+    ingest and outputs; it must print every file it wrote."""
+    if not use_h5py:
+        print("[batch] walkthrough not run: no h5py here, and its ingest writes and reads "
+              "NetCDF; the batch and phases 4-6 run its driver calls on the card")
+        return
+    from topo_descriptors_tpu_torch.examples.walkthrough import walkthrough
+
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(printed):
+        paths = walkthrough(raster, device="cuda", outdir=tmp)
+    text = printed.getvalue()
+    check(text.startswith("device: cuda") and paths and all(p.name in text for p in paths),
+          f"the walkthrough printed {text[:200]!r}")
+    print(f"[batch] walkthrough on the card: {len(paths)} output files written and printed")
+
+
+def run_profiling_batch(baso, raw_ds, dem_ds, ind_nans, dem, use_h5py, phase4_out, phase6_out,
+                        smi_line):
+    """Phase 9: calibration, the roofline against the card, a device trace,
+    the reference's batch and the walkthrough. Returns the batch's launches."""
+    t0 = time.perf_counter()
+    cal = calibrate(dem_ds, dem, smi_line)
+    print_routes(dem_ds, tuple(dem.shape), cal, smi_line)
+    check_roofline(dem_ds, dem, cal, smi_line)
+    trace_tpi(dem_ds, ind_nans, use_h5py, smi_line)
+    launches, store = run_batch(raw_ds, ind_nans, use_h5py, phase4_out, phase6_out, cal, smi_line)
+    check_largest_routes(dem_ds, dem, store, smi_line)
+    run_walkthrough(baso, use_h5py)
+    print(f"[batch] phase 9 done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     name, smi_line = card()
     from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na
@@ -1919,8 +2320,8 @@ def main() -> int:
     sweep_times = time_sweeps(grids, smi_line)
     print(f"[time] done at {time.perf_counter() - t0:.1f} s")
     del grids
-    slice3_launches = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
-                                    np.ascontiguousarray(baso.data[:90, :144]), smi_line)
+    slice3_launches, slice3_out = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
+                                             np.ascontiguousarray(baso.data[:90, :144]), smi_line)
     print(f"[slice3] done at {time.perf_counter() - t0:.1f} s")
     streamed_launches = run_out_of_core(baso.with_data(data), with_holes(big, BIG_HOLES), use_h5py,
                                         smi_line, auto_kernel)
@@ -1929,6 +2330,9 @@ def main() -> int:
                                    np.ascontiguousarray(big.data, np.float32), dem_ds, ind_nans,
                                    use_h5py, smi_line, auto_kernel)
     print(f"[mesh] done at {time.perf_counter() - t0:.1f} s")
+    batch_launches = run_profiling_batch(baso, baso.with_data(data), dem_ds, ind_nans, dem_filled,
+                                         use_h5py, main_out, slice3_out, smi_line)
+    print(f"[batch] done at {time.perf_counter() - t0:.1f} s")
     sources = {
         "disk_sat": ("topo_descriptors_tpu_torch/csrc/disk_sat.cu",
                      "topo_descriptors_tpu/ops/pallas/disk_sat.py:58"),
@@ -1951,6 +2355,7 @@ def main() -> int:
             entry["launches_suite"] = slice3_launches[kernel]
         entry["launches_streamed"] = streamed_launches[kernel]  # phase 7
         entry["launches_sharded"] = sharded_launches[kernel]  # phase 8
+        entry["launches_batch"] = batch_launches[kernel]  # phase 9
         if kernel in sx_sweep.LAUNCHES:  # 36 azimuths; ms at 900x1440 r = 200 m
             for suffix, case in (("", "900x1440 r200"), ("_r2000", "900x1440 r2000"),
                                  ("_8192", "8192x8192 r500")):

@@ -67,7 +67,11 @@ def test_port_imports_without_jax():
             "topo_descriptors_tpu_torch.kernels.sobel",
             "topo_descriptors_tpu_torch.kernels.sx_geometry",
             "topo_descriptors_tpu_torch.kernels.valley",
-            "topo_descriptors_tpu_torch.utils.timing"} <= set(names)
+            "topo_descriptors_tpu_torch.utils.timing",
+            "topo_descriptors_tpu_torch.utils.profiling",
+            "topo_descriptors_tpu_torch.examples",
+            "topo_descriptors_tpu_torch.examples.compute_topo_descriptors",
+            "topo_descriptors_tpu_torch.examples.walkthrough"} <= set(names)
 
 
 def _imported_packages(path):

@@ -102,7 +102,11 @@ def test_plan_cache_is_keyed_on_the_device():
 @pytest.mark.parametrize("shape,kk", [((900, 1440), 95), ((900, 1440), 943), ((900, 1440), 4717),
                                       ((40, 48), 13), ((64, 64), 33)])
 def test_prefer_dft_matmul_routes_as_jax(shape, kk):
-    assert tdft.prefer_dft_matmul(*shape, kk, kk) == jdft.prefer_dft_matmul(*shape, kk, kk)
+    # the port's defaults are the H100's rates and may route otherwise; with
+    # the JAX package's rates passed in, the cost model's formula must route
+    # as the JAX one
+    jax_rates = dict(mm_macs_per_sec=jdft._MM_MACS_PER_SEC, fft_sec_per_pt=jdft._FFT_SEC_PER_PT)
+    assert tdft.prefer_dft_matmul(*shape, kk, kk, **jax_rates) == jdft.prefer_dft_matmul(*shape, kk, kk)
 
 
 def test_full_float32_pins_and_restores_the_flags():
@@ -252,6 +256,29 @@ def test_valley_ridge_streamed_matches_jax_and_oracle(dem_tiny, conv_method, cas
                                     conv_method=conv_method)
     _assert_valley_close(outs, ref)
     _assert_valley_close(outs, _oracle(dem_tiny, size, mode, flats, sigma))
+
+
+@pytest.fixture(scope="module")
+def basodino_crop():
+    """A 90 x 144 crop of the Basodino-sized demo grid (30 m)."""
+    from topo_descriptors_tpu_torch.host import basodino_like_dem
+
+    return np.ascontiguousarray(basodino_like_dem(projected=True).data[:90, :144])
+
+
+# kernel sizes (px) with streamed canvases of 30, 95 (taller than the crop)
+# and 157 px (wider than it), as the 60 km and 100 km canvases exceed
+# 900 x 1440; sigma as smth_factors=0.5
+@pytest.mark.parametrize("size", [21, 67, 111])
+def test_streamed_routes_agree(basodino_crop, size):
+    """Both routes of the streamed valley index give one result within the
+    valley tolerances, so the card's routing constants can move a scale
+    from one to the other without changing its output beyond them."""
+    mm, fft = (
+        [o.numpy() for o in tvr.valley_ridge_streamed(basodino_crop, size, "valley", [0, 0.2, 0.4],
+                                                      size / 8, conv_method=c, device="cpu")]
+        for c in ("mm", "fft"))
+    _assert_valley_close(mm, fft)
 
 
 def test_streamed_inline_rotation_equals_cached(dem_tiny, monkeypatch):

@@ -11,6 +11,7 @@ from topo_descriptors_tpu_torch.ops.conv import (
     conv2d_valid,
     conv2d_valid_bank,
     convolve_reflect,
+    edge_count_plane,
     gaussian_filter,
     gradient_axis,
 )
@@ -29,6 +30,7 @@ __all__ = [
     "conv2d_valid_bank",
     "conv2d_bank_rowchan",
     "convolve_reflect",
+    "edge_count_plane",
     "gaussian_filter",
     "gradient_axis",
     "dem",

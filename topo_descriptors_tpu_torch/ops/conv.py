@@ -395,6 +395,35 @@ def gradient_axis(x: torch.Tensor, axis: int, edge_order: str = "one_sided") -> 
 # --- exact boundary count plane ---------------------------------------------
 
 
+def edge_count_plane(shape: Tuple[int, int], kernel: np.ndarray) -> np.ndarray:
+    """Exact ``conv2d_same(ones(shape), kernel)`` on the host in float64.
+
+    Near the zero-padded boundary a 'same' convolution sums fewer kernel
+    taps; this plane is the per-pixel sum of the in-bounds taps, read from
+    the kernel's integral image (O(N), no convolution). Counterpart of
+    ``topo_descriptors_tpu.ops.conv.edge_count_plane``;
+    :func:`edge_count_plane_device` builds the same plane on a device.
+    """
+    h, w = shape
+    kernel = np.asarray(kernel, dtype=np.float64)
+    kh, kw = kernel.shape
+    sh, sw = (kh - 1) // 2, (kw - 1) // 2
+    integral = np.zeros((kh + 1, kw + 1))
+    integral[1:, 1:] = kernel.cumsum(0).cumsum(1)
+    # kernel row window of output row y: [y+sh-(h-1), y+sh], clipped
+    y, x = np.arange(h), np.arange(w)
+    m0 = np.clip(y + sh - (h - 1), 0, kh)
+    m1 = np.clip(y + sh + 1, 0, kh)
+    n0 = np.clip(x + sw - (w - 1), 0, kw)
+    n1 = np.clip(x + sw + 1, 0, kw)
+    return (
+        integral[np.ix_(m1, n1)]
+        - integral[np.ix_(m0, n1)]
+        - integral[np.ix_(m1, n0)]
+        + integral[np.ix_(m0, n0)]
+    )
+
+
 def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device, window) -> torch.Tensor:
     """``conv2d_same(ones(shape), kernel)`` for {0,1} kernels: each group of
     rows sharing a run contributes (in-bounds source rows at output row y)

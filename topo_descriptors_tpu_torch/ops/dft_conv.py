@@ -13,9 +13,11 @@ All DFT phases are computed on the host in float64 and stored as float32
 product runs in full float32 (:func:`~.conv.full_float32`): TF32 keeps
 ~2^-11 of relative accuracy, enough to flip the valley direction argmax.
 
-Cost model: :func:`prefer_dft_matmul` keeps the JAX package's constants so
-that both packages pick the same route; they were calibrated on another
-device and are not re-measured on the H100 yet.
+Cost model: :func:`prefer_dft_matmul` has the JAX package's formula with
+the H100's own rates, measured by ``chip_smoke.py`` phase 9 (the mix of
+the 2 km bank and the 20 km streamed kernels for the matmuls, the
+streamed FFT route's convolution at the 20 km and 100 km shapes for
+``torch.fft``).
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ import torch
 from topo_descriptors_tpu_torch.device import upload
 from topo_descriptors_tpu_torch.ops.conv import _fft_shape, full_float32
 
-# the JAX package's calibration (sustained matmul rate for this op mix,
-# FFT cost per transformed point at 5-smooth sizes), kept for routing parity
-_MM_MACS_PER_SEC = 18e12
-_FFT_SEC_PER_PT = 0.19e-9
+# sustained SGEMM rate of conv_bank on the valley mix, and the FFT route's
+# seconds per transformed point at 5-smooth sizes (2 per kernel); measured by
+# chip_smoke.py phase 9 on "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi
+# name, power.limit)
+_MM_MACS_PER_SEC = 20.4643e12
+_FFT_SEC_PER_PT = 2.06824e-11
 
 
 def _phases(rows: np.ndarray, cols: np.ndarray, n: int, sign: float,
@@ -167,18 +171,29 @@ def conv_bank_mats(kernels, fdr, fdi, cxf, sxf, cyf, syf, cyi, syi, cxi, sxi) ->
         return s2r @ cxi - s2i @ sxi  # (B, oh, ow)
 
 
-def prefer_dft_matmul(h_in: int, w_in: int, ky: int, kx: int) -> bool:
-    """Route between the matmul-DFT and the FFT conv by the JAX package's
-    cost model: the matmul side charges its MACs at ``_MM_MACS_PER_SEC``,
-    the FFT side ~2 full-size transforms per kernel at ``_FFT_SEC_PER_PT``
-    on the 5-smooth padded shape."""
+def route_seconds(h_in: int, w_in: int, ky: int, kx: int, *,
+                  mm_macs_per_sec: float = _MM_MACS_PER_SEC,
+                  fft_sec_per_pt: float = _FFT_SEC_PER_PT) -> Tuple[float, float]:
+    """``(t_mm, t_fft)``: seconds per kernel of a 'same' convolution of an
+    (h_in, w_in) field by the JAX package's cost model. The matmul side
+    charges its MACs at the aliased lengths at ``mm_macs_per_sec``, the FFT
+    side ~2 full-size transforms on the 5-smooth padded shape at
+    ``fft_sec_per_pt``. The defaults are the card's rates."""
     sy, sx = (ky - 1) // 2, (kx - 1) // 2
     ph = float(max(h_in + ky - 1 - sy, sy + h_in))  # aliased lengths
     pw = float(max(w_in + kx - 1 - sx, sx + w_in))
     nb = pw // 2 + 1
     macs = ky * kx * nb * 2 + ph * ky * nb * 4 + h_in * ph * nb * 4 \
         + h_in * nb * w_in * 2
-    t_mm = macs / _MM_MACS_PER_SEC
     fh, fw = _fft_shape(h_in + ky - 1), _fft_shape(w_in + kx - 1)
-    t_fft = 2 * fh * fw * _FFT_SEC_PER_PT
+    return macs / mm_macs_per_sec, 2 * fh * fw * fft_sec_per_pt
+
+
+def prefer_dft_matmul(h_in: int, w_in: int, ky: int, kx: int, *,
+                      mm_macs_per_sec: float = _MM_MACS_PER_SEC,
+                      fft_sec_per_pt: float = _FFT_SEC_PER_PT) -> bool:
+    """Route between the matmul-DFT and the FFT conv: the matmul side when
+    :func:`route_seconds` gives it no more time than the FFT side."""
+    t_mm, t_fft = route_seconds(h_in, w_in, ky, kx, mm_macs_per_sec=mm_macs_per_sec,
+                                fft_sec_per_pt=fft_sec_per_pt)
     return t_mm <= t_fft

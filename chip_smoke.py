@@ -11,7 +11,9 @@ Phases, each printing its lines:
 3. hold each kernel against its plain PyTorch twin on the card, at the
    Basodino-sized grid (900 x 1440), at 8192 x 8192 and on a 1000 x 1337
    grid that is no multiple of either kernel's tile: the disk kernel with
-   the main path's disks and the 20 km (667 px) disk of the wide route,
+   the main path's disks and the wide route's 6, 20 and 100 km disks (201,
+   667 and 3333 px; 'same' and 'valid', one field and the STD stack; 201
+   px also on a 50 x 61 crop),
    the Sx kernel at 500 m and 2000 m (every side of the one-sided halo)
    and with a 10 km fan of the global route, also on a 50 x 61 grid
    smaller than the 2000 m halo; the Sx sweep and fan kernels on all four
@@ -32,7 +34,14 @@ Phases, each printing its lines:
    HBM rate) and, for the disk kernel, the one PyTorch call that computes
    the same function (``F.conv2d`` in full float32); the 36-azimuth fans
    through both sweep kernels, each with its route, bound and share,
-   beside the per-azimuth ``sx_block`` loop and the twin;
+   beside the per-azimuth ``sx_block`` loop and the twin; the disk
+   kernel's wide route at the example batch's 6, 20 and 100 km disks
+   (201, 667, 3333 px) on 900 x 1440, 667 px on the STD moment stack, and
+   667 and 201 px at 8192 x 8192, each first held against its twin as in
+   phase 3, then timed with its twin (a call over 200 ms: median of 3),
+   bound (kernel rows inside the field only), launches and, where it runs
+   in well under 10 s, the library call; the whole ``ops.tpi`` at 3333 px
+   with its host parts; and the Sx kernels' global routes at 10 km;
 6. run the third slice on the 900 x 1440 grid with NaN holes, at the
    reference's scales: ``compute_dem``, ``compute_gradient`` (both checked
    against the same drivers on the CPU), ``compute_valley_ridge`` in valley
@@ -145,7 +154,7 @@ def build():
     kernel = None  # ptxas reports each kernel's entry, then its spills and registers
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("row_scanILi1E", "row_scanILi128E", "run_sum",
+            kernel = next((k for k in ("row_scanILi1E", "row_scanILi128E", "disk_sat_wide",
                                        "disk_sat_tile", "sx_block_tile", "sx_block_kernel",
                                        "sx_sweep_kernel", "sx_fan_kernel", "sx_sweep_tile",
                                        "sx_fan_tile")
@@ -159,15 +168,19 @@ def build():
 
 def disk_cases(dem: torch.Tensor, grid: str):
     """(name, fields, kernel, pads) as the main path feeds the kernel: the
-    mean-centred DEM (TPI) and the STD moment stack (z-c, t-c, (t-c)^2);
-    at 900x1440 also the 20 km (667 px) disk of the example batch, whose
-    tile does not fit in shared memory: the wide route."""
+    mean-centred DEM (TPI) and the STD moment stack (z-c, t-c, (t-c)^2),
+    with the main path's disks; and the disks of the example batch whose
+    tile does not fit in shared memory, the wide route: at 900x1440 the 6,
+    20 and 100 km disks (201, 667 and 3333 px), 667 px on the moment stack
+    and 201 px on it with 'valid' pads; 667 px at 1000x1337; on the 50x61
+    crop only the 201-px disk, taller and wider than the grid."""
     from topo_descriptors_tpu_torch.host import circular_kernel
     from topo_descriptors_tpu_torch.ops.conv import _same_pads
 
     z = dem - torch.round(dem.mean())
     t = torch.trunc(dem) - torch.round(dem.mean())
     moments = torch.stack([z, t, t * t]).contiguous()
+    z = z[None].contiguous()
     even = np.ones((4, 6), np.float32)
     even[1, 2] = 0.0
 
@@ -176,15 +189,24 @@ def disk_cases(dem: torch.Tensor, grid: str):
 
     tpi67 = circular_kernel(67, exclude_center=True)
     disk17 = circular_kernel(17)
+    disk201, disk667 = circular_kernel(201), circular_kernel(667)
+    if grid == "50x61":
+        return [("disk201_b1_wide", z, disk201, same(disk201))]
     cases = [
-        ("tpi_disk67_b1", z[None].contiguous(), tpi67, same(tpi67)),
+        ("tpi_disk67_b1", z, tpi67, same(tpi67)),
         ("disk17_b3", moments, disk17, same(disk17)),
-        ("even4x6_b1", z[None].contiguous(), even, same(even)),
+        ("even4x6_b1", z, even, same(even)),
         ("disk17_b3_valid", moments, disk17, ((0, 0), (0, 0))),
     ]
     if grid == "900x1440":
-        disk667 = circular_kernel(667)
-        cases.append(("disk667_b1_wide", z[None].contiguous(), disk667, same(disk667)))
+        disk3333 = circular_kernel(3333)
+        cases += [("disk201_b1_wide", z, disk201, same(disk201)),
+                  ("disk667_b1_wide", z, disk667, same(disk667)),
+                  ("disk3333_b1_wide", z, disk3333, same(disk3333)),
+                  ("disk667_b3_wide", moments, disk667, same(disk667)),
+                  ("disk201_b3_valid_wide", moments, disk201, ((0, 0), (0, 0)))]
+    elif grid == "1000x1337":
+        cases.append(("disk667_b1_wide", z, disk667, same(disk667)))
     return cases
 
 
@@ -572,17 +594,33 @@ def bound(ops, nbytes):
 
 
 def disk_work(shape, kshape, runs, pads):
-    """(operations, bytes) of one disk convolution of a (B, H, W) stack: the
-    row scan's one add per padded input, then per output one add per prefix
-    read (2 x runs), one subtraction per run group and one add per group
+    """(operations, bytes) of one disk convolution of a (B, H, W) stack.
+    Only kernel rows whose padded row lies inside the field count: the
+    others add prefix rows of zeros, exactly +0.0, which is no work the
+    card must do. So: the row scan's one add per input of a field row, then
+    per output one add per prefix read (2 per run whose row is inside), one
+    subtraction per run group with a row inside and one add per such group
     after the first; the fields read once, the output written once."""
     from topo_descriptors_tpu_torch.ops.cuda import disk_sat
 
     (ly, hy), (lx, hx) = pads
     b, h, w = shape
     h_out, w_out = h + ly + hy - kshape[0] + 1, w + lx + hx - kshape[1] + 1
-    n_groups = len(disk_sat.group_runs(runs))
-    ops = b * h_out * w_out * (2 * len(runs) + 2 * n_groups - 1) + b * (h + ly + hy) * (w + lx + hx)
+
+    def rows_inside(rows):
+        """Per output row y, how many of ``rows`` have ly <= y + r < ly + h."""
+        diff = np.zeros(h_out + 1, np.int64)
+        for r in rows:
+            y0, y1 = min(max(ly - r, 0), h_out), min(max(ly + h - r, 0), h_out)
+            diff[y0] += 1
+            diff[y1] -= 1
+        return np.cumsum(diff[:-1])
+
+    n_runs = rows_inside([r for r, _, _ in runs])
+    n_groups = sum((rows_inside(rows) > 0).astype(np.int64)
+                   for _, _, rows in disk_sat.group_runs(runs))
+    per_row = 2 * n_runs + np.maximum(2 * n_groups - 1, 0)
+    ops = b * w_out * int(per_row.sum()) + b * h * (w + lx + hx)
     return ops, 4 * b * (h * w + h_out * w_out)
 
 
@@ -675,11 +713,148 @@ def time_kernels(grids, smi_line):
     return times
 
 
-def slow_median_ms(fn):
+# the disk kernel's wide route: (grid, disk px, B) as the batch feeds it
+# (TPI: the mean-centred DEM; B = 3: STD's moment stack); the library call
+# runs where it takes well under 10 s (F.conv2d here: about 2e12 MAC/s)
+WIDE_CASES = (("900x1440", 201, 1), ("900x1440", 667, 1), ("900x1440", 3333, 1),
+              ("900x1440", 667, 3), ("8192x8192", 667, 1), ("8192x8192", 201, 1))
+WIDE_LIBRARY = {("900x1440", 201, 1), ("900x1440", 667, 1), ("900x1440", 3333, 1),
+                ("900x1440", 667, 3), ("8192x8192", 201, 1)}
+# a wide case's call over 200 ms (twins, library) is timed as a median of 3
+WIDE_SLOW_MS = 200.0
+
+
+def time_wide(grids, smi_line):
+    """The wide route of ``disk_sat`` against its twin and, where timed, the
+    library call, beside its bound (rows inside the field only), with the
+    launches of one call by route; every timed case is first held against
+    the twin as phase 3 holds it (:func:`check_disk`)."""
+    from topo_descriptors_tpu_torch.host import circular_kernel
+    from topo_descriptors_tpu_torch.ops.conv import _binary_kernel_runs, _same_pads
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat
+
+    times = {}
+    for grid, size, fields in WIDE_CASES:
+        dem = grids[grid]
+        z = dem - torch.round(dem.mean())
+        t = torch.trunc(dem) - torch.round(dem.mean())
+        xs = (torch.stack([z, t, t * t]) if fields == 3 else z[None]).contiguous()
+        kernel = circular_kernel(size)
+        runs = _binary_kernel_runs(kernel[::-1, ::-1])
+        pads = (_same_pads(size), _same_pads(size))
+        before = dict(disk_sat.ROUTE_LAUNCHES)
+        disk_sat.disk_conv_sat(xs, kernel.shape, runs, pads)
+        torch.cuda.synchronize()
+        per_call = {r: n - before[r] for r, n in disk_sat.ROUTE_LAUNCHES.items() if n > before[r]}
+        check(per_call == {"wide": 1}, f"disk_sat {size} px {grid}: launches {per_call}")
+        check_disk(f"disk{size}_b{fields}_wide", xs, kernel, pads, grid)
+        t_kernel, reps = slow_median_ms(lambda: disk_sat.disk_conv_sat(xs, kernel.shape, runs, pads),
+                                        WIDE_SLOW_MS)
+        t_plain, plain_reps = slow_median_ms(
+            lambda: disk_sat.disk_conv_sat_plain(xs, kernel.shape, runs, pads), WIDE_SLOW_MS)
+        work = disk_work(xs.shape, kernel.shape, runs, pads)
+        t_bound, bound_by = bound(*work)
+        macs = xs.numel() * float(kernel.sum())
+        if (grid, size, fields) in WIDE_LIBRARY:
+            t_lib, lib_reps = slow_median_ms(disk_library(xs, kernel), WIDE_SLOW_MS)
+            lib_text = f"library F.conv2d full float32 {t_lib:.4f} ms (median of {lib_reps})"
+        else:
+            t_lib, lib_text = None, f"library F.conv2d: not run ({macs:.3g} MACs)"
+        case = f"{size}px {grid} B={fields}"
+        times[case] = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound, bound_by=bound_by,
+                           library_ms=t_lib, launches_per_call=per_call)
+        print(f"[time] disk_sat wide {case}: kernel {t_kernel:.4f} ms (median of {reps}), twin "
+              f"{t_plain:.4f} ms (median of {plain_reps}); bound {t_bound:.4f} ms ({bound_by}; "
+              f"{work[0]:.4g} ops, {work[1]:.4g} bytes), share of bound {t_bound / t_kernel:.4f}; "
+              f"{lib_text}; launches per call {per_call} on {smi_line}")
+    times["tpi_3333"] = whole_op_tpi(grids["900x1440"], smi_line)
+    return times
+
+
+def whole_op_tpi(dem, smi_line):
+    """``ops.tpi`` at the 100 km disk (3333 px) on 900x1440 against its
+    kernel, and the host work the op repeats on every call: the kernel's
+    11 M taps, their runs (taken twice: the convolution and the count
+    plane) and the count plane (runs again, then a dense (H x runs) by
+    one-hot (runs x groups) product on the host); and the wide plan's
+    build, which ``TABLES`` keeps after the first call."""
+    from topo_descriptors_tpu_torch import ops
+    from topo_descriptors_tpu_torch.host import circular_kernel
+    from topo_descriptors_tpu_torch.ops.conv import (_binary_kernel_runs, _same_pads,
+                                                     edge_count_plane_device)
+    from topo_descriptors_tpu_torch.ops.cuda import disk_sat
+
+    kernel = circular_kernel(3333, exclude_center=True)
+    runs = _binary_kernel_runs(kernel[::-1, ::-1])
+    z = (dem - torch.round(dem.mean()))[None].contiguous()
+    pads = (_same_pads(3333), _same_pads(3333))
+    parts = {
+        "ops.tpi": lambda: ops.tpi(dem, 3333, device=dem.device),
+        "kernel": lambda: disk_sat.disk_conv_sat(z, kernel.shape, runs, pads),
+        "circular_kernel": lambda: circular_kernel(3333, exclude_center=True),
+        "runs": lambda: _binary_kernel_runs(kernel[::-1, ::-1]),
+        "count plane": lambda: edge_count_plane_device(dem.shape, kernel, dem.device),
+        "wide plan": lambda: disk_sat.wide_plan(runs),
+    }
+    ms = {name: median_ms(fn, reps=3, warmup=1) for name, fn in parts.items()}
+    print(f"[time] whole op ops.tpi(3333 px) 900x1440: {ms['ops.tpi']:.1f} ms against its "
+          f"disk_sat kernel {ms['kernel']:.4f} ms; host work per call: circular_kernel "
+          f"{ms['circular_kernel']:.1f} ms, the runs {ms['runs']:.1f} ms (taken twice), "
+          f"edge_count_plane_device {ms['count plane']:.1f} ms; once per kernel: wide_plan "
+          f"{ms['wide plan']:.1f} ms (median of 3) on {smi_line}")
+    return ms
+
+
+def time_global_routes(grid, dem, smi_line):
+    """The Sx kernels' global routes (halos above 227 KB) at the 10 km fans
+    phase 3 holds: ``sx_block`` at 45 degrees, ``sx_sweep``/``sx_fan`` on
+    azimuths 0 and 45; kernel and twin beside the bound."""
+    from topo_descriptors_tpu_torch.host import (sx_dedupe, sx_offsets, sx_sweep_dedupe,
+                                                 sx_sweep_offsets)
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+
+    o1, d1, b1 = sx_offsets(45.0, 10_000.0, 30.0, 30.0)
+    o1, d1 = sx_dedupe(o1, d1)
+    offs, _, inv = sx_block.ray_groups(o1, d1)
+    fo, fd, fb = sx_sweep_offsets((0, 45), 10_000.0, 30.0, 30.0)
+    fo, fd = sx_sweep_dedupe(fo, fd)
+    routes = sweep_routes(fo, fd, fb, dem.device)
+    def fan_twin():
+        return sx_sweep.sx_sweep_plain(dem, fo, fd, fb, 10.0)
+
+    rows = {
+        "sx_block": (sx_block.route(sx_block.halo_box(offs), len(offs), len(inv)),
+                     lambda: sx_block.sx_block(dem, o1, d1, b1, 10.0),
+                     lambda: sx_block.sx_block_plain(dem, o1, d1, b1, 10.0),
+                     sx_work(dem.shape, o1, d1, b1), "az 45"),
+        "sx_sweep": (routes["sx_sweep"], lambda: sx_sweep.sx_sweep(dem, fo, fd, fb, 10.0),
+                     fan_twin, sx_work(dem.shape, fo, fd, fb), "az 0, 45"),
+        "sx_fan": (routes["sx_fan"], lambda: sx_sweep.sx_fan(dem, fo, fd, fb, 10.0),
+                   fan_twin, sx_work(dem.shape, fo, fd, fb), "az 0, 45"),
+    }
+    times, twins = {}, {}
+    for kernel, (route, fast, plain, work, azimuths) in rows.items():
+        check(route == "global", f"{kernel} 10 km: route {route}, not global")
+        t_kernel, reps = slow_median_ms(fast)
+        if plain not in twins:  # the two fan kernels share one twin: timed once
+            twins[plain] = slow_median_ms(plain)
+        t_plain, plain_reps = twins[plain]
+        t_bound, bound_by = bound(*work)
+        times[kernel] = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound, bound_by=bound_by,
+                             library_ms=None)
+        print(f"[time] {kernel} global route, Sx 10 km {azimuths} {grid}: kernel {t_kernel:.4f} ms "
+              f"(median of {reps}), twin {t_plain:.4f} ms (median of {plain_reps}); bound "
+              f"{t_bound:.4f} ms ({bound_by}; {work[0]:.4g} ops, {work[1]:.4g} bytes), share of "
+              f"bound {t_bound / t_kernel:.4f}; library call: none on {smi_line}")
+    return times
+
+
+def slow_median_ms(fn, slow_ms: float = 1000.0):
     """(median ms, repetitions): :func:`median_ms`, but a function whose
-    first call takes over a second gets 3 repetitions after it."""
+    first call takes over ``slow_ms`` (a second) gets 3 repetitions after
+    it."""
     first = median_ms(fn, reps=1, warmup=0)
-    if first > 1000.0:
+    if first > slow_ms:
         return median_ms(fn, reps=3, warmup=0), 3
     return median_ms(fn, warmup=2), TIMING_REPS
 
@@ -2255,9 +2430,8 @@ def main() -> int:
     ragged = torch.from_numpy(basodino_like_dem(1000, 1337, seed=3).data).cuda()
     small = grids["900x1440"][:50, :61].contiguous()
     for grid, dem in {**grids, "1000x1337": ragged, "50x61": small}.items():
-        if grid != "50x61":
-            for case in disk_cases(dem, grid):
-                errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
+        for case in disk_cases(dem, grid):
+            errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
         for case in sx_cases(grid):
             errs["sx_block"] = max(errs["sx_block"], check_sx(case[0], dem, *case[1:], grid))
         for case in sweep_cases(grid):
@@ -2318,6 +2492,8 @@ def main() -> int:
 
     times = time_kernels(grids, smi_line)
     sweep_times = time_sweeps(grids, smi_line)
+    wide_times = time_wide(grids, smi_line)
+    global_times = time_global_routes("900x1440", grids["900x1440"], smi_line)
     print(f"[time] done at {time.perf_counter() - t0:.1f} s")
     del grids
     slice3_launches, slice3_out = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
@@ -2367,6 +2543,10 @@ def main() -> int:
             for suffix, grid in (("", "900x1440"), ("_8192", "8192x8192")):
                 for key, value in times[(kernel, grid)].items():
                     entry[f"{key}{suffix}"] = value
+        if kernel == "disk_sat":  # the wide route, phase 5
+            entry["wide"] = wide_times
+        else:  # the global route at 10 km, phase 5
+            entry["global"] = global_times[kernel]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

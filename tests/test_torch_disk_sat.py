@@ -166,7 +166,7 @@ def _disk_table_len(size):
 
 
 @pytest.mark.parametrize("size,expected", [(17, "fused"), (67, "fused"), (667, "wide"),
-                                           (3333, "wide")])
+                                           (3333, "wide"), (201, "wide")])
 def test_route_is_chosen_by_the_kernel_alone(size, expected):
     """The fused tile of the 17- and 67-px disks fits in the 227 KB of
     shared memory, that of the 20 km (667 px) and 100 km (3333 px) disks
@@ -180,22 +180,23 @@ def test_route_is_chosen_by_the_kernel_alone(size, expected):
 
 
 def test_run_table_is_uploaded_once_per_table():
-    """A repeated call with the same runs and pads finds its table on the
-    device; the cache holds a few tables, the oldest goes first."""
+    """A repeated call with the same runs and kernel shape finds its table
+    on the device; the cache holds a few tables, the oldest goes first."""
     disk_sat.TABLES.clear()
     before = disk_sat.TABLES.builds
     runs = jconv._binary_kernel_runs(kernels.circular_kernel(9)[::-1, ::-1])
-    pads = ((4, 4), (4, 4))
-    first = disk_sat.device_table(runs, pads, "cpu")
-    again = disk_sat.device_table(list(runs), pads, torch.device("cpu"))
+    first = disk_sat.device_table(runs, (9, 9), "cpu")
+    again = disk_sat.device_table(list(runs), [9, 9], torch.device("cpu"))
     assert again is first and disk_sat.TABLES.builds == before + 1
     table, n_groups = disk_sat.run_table(runs)
-    np.testing.assert_array_equal(first[0].numpy(), table)
-    assert first[1:] == (n_groups, len(table))
+    assert first[0] == "fused"
+    np.testing.assert_array_equal(first[1].numpy(), table)
+    assert first[2] == (n_groups, len(table))
     for size in range(11, 11 + 2 * disk_sat.TABLES.size, 2):
-        disk_sat.device_table(jconv._binary_kernel_runs(kernels.circular_kernel(size)), pads, "cpu")
+        runs_s = jconv._binary_kernel_runs(kernels.circular_kernel(size))
+        disk_sat.device_table(runs_s, (size, size), "cpu")
     assert len(disk_sat.TABLES) == disk_sat.TABLES.size
-    assert disk_sat.device_table(runs, pads, "cpu") is not first  # evicted, built again
+    assert disk_sat.device_table(runs, (9, 9), "cpu") is not first  # evicted, built again
 
 
 def _integer_fields(shape, seed):
@@ -208,15 +209,22 @@ def _integer_fields(shape, seed):
 
 # (fields shape, disk size px, exclude centre, mode): a grid that is not a
 # multiple of the fused tile, the 67-px TPI disk on a 3-field stack, a
-# misaligned row width (no 16-byte loads), and the wide route's 667-px disk
+# misaligned row width (no 16-byte loads), and the wide route's disks: 667,
+# 201 and 3333 px (sums past 2^24) on 900x1440, 'valid' pads, a 3-field
+# stack
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,size,centre,mode,route", [
     ((1, 1000, 1337), 67, True, "same", "fused"),
     ((3, 130, 250), 17, False, "valid", "fused"),
     ((2, 75, 301), 67, True, "same", "fused"),
     ((1, 900, 1440), 667, False, "same", "wide"),
+    ((1, 900, 1440), 201, True, "same", "wide"),
+    ((1, 900, 1440), 3333, False, "same", "wide"),
+    ((1, 400, 530), 201, False, "valid", "wide"),
+    ((3, 300, 701), 667, False, "same", "wide"),
 ], ids=["ragged_1000x1337_67px", "stack3_valid_17px", "misaligned_rows_67px",
-        "wide_667px_900x1440"])
+        "wide_667px_900x1440", "wide_201px_900x1440", "wide_3333px_900x1440",
+        "wide_valid_201px", "wide_stack3_667px"])
 def test_disk_sat_routes_bit_equal_on_cuda(shape, size, centre, mode, route):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")

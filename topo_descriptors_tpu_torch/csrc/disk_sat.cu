@@ -42,10 +42,36 @@
 //     The prefix is carried in from the row's start, not restarted per
 //     tile, because bit-equality on integer fields needs the twin's P
 //     values; the full prefix plane and its two HBM round trips are gone.
-//   * WIDE (the tile does not fit: the 20 km and 100 km disks of the
-//     example batch, 667 and 3333 px). disk_sat_row_scan<1> writes the
-//     full prefix plane P and disk_sat_run_sum reads it, one thread per
-//     output pixel, neighbouring threads on neighbouring columns.
+//   * WIDE (the tile does not fit: the 6-100 km disks of the example
+//     batch, 201-3333 px). What bounds it: shared-memory loads. An output
+//     reads 2 prefix values per kernel row that meets the field (~1334 for
+//     the 667-px disk in the grid's interior), and the staged rows a tile's
+//     sums need run to megabytes, so they pass through shared memory in
+//     chunks, each band of kernel rows staged with a 31-row halo: ~0.14
+//     staged values per read, a stream from L2 at ~4 TB/s. The earlier
+//     two-launch design read every value with a scalar global load from a
+//     full prefix plane that held every zero pad row (81 MB at 3333 px on
+//     900 x 1440, 79% of its rows zero, larger than the 50 MB L2). What
+//     the design does:
+//     disk_sat_row_scan<1> scans only the h field rows (a pad row's prefix
+//     row is all zeros: it adds exactly +0.0, so leaving it out changes no
+//     bit). disk_sat_wide takes the fused route's 32 x 128 output tile and
+//     16 outputs per thread (one table read feeds 16 outputs, warp loads
+//     of 32 consecutive words), and streams the run table's rows, in table
+//     order, through two stages of shared memory: the host plan
+//     (ops/cuda/disk_sat.py::wide_plan) cuts them into chunks that fit a
+//     stage, each a set of bands of consecutive kernel rows staged as two
+//     16-byte-aligned column strips (run starts, run ends) by cp.async, the
+//     next chunk in flight while the current one is summed. Chunks, bands
+//     and (per warp) rows that miss the field are skipped; up to four
+//     consecutive rows of a group (the disk's flat middle) are one step
+//     read from one window (0.72 loads per read for these disks; the
+//     fused route does it for two). The sums keep the twin's order, so no
+//     split of a tile's rows across blocks and no atomics: occupancy comes
+//     from the tiles (348 per field at 900 x 1440), one block per SM.
+//     On the H100 the sums take most of the kernel's time and the staging
+//     overlaps them only in part (PERF.md); 512 threads of 2 rows each were
+//     no faster than 256 of 4.
 // The run table is runtime data, so one build serves every disk size.
 // Indices into the fields, P and the output are 64-bit; tile loops replace
 // the 65535 cap on gridDim.y.
@@ -62,7 +88,7 @@ constexpr int kScanItems = 4;
 constexpr int kScanChunk = kScanThreads * kScanItems;
 constexpr int kScanWarps = kScanThreads / 32;
 
-// The fused route's output tile; ops/cuda/disk_sat.py mirrors these to
+// The output tile of both routes; ops/cuda/disk_sat.py mirrors these to
 // size the shared memory and choose the route.
 constexpr int kTileH = 32;
 constexpr int kTileW = 128;
@@ -73,14 +99,18 @@ constexpr int kColsPerLane = kTileW / 32;          // 4
 // Most prefix values one lane scans per staged row: kTileW + kw - 1 <=
 // 32 * kSegMax, i.e. kw <= 193 (the 227 KB tile already stops at ~166).
 constexpr int kSegMax = 10;
+// Most consecutive rows of one group a step reads from one window
+// (ops/cuda/disk_sat.py::WIDE_SPAN).
+constexpr int kWideSpan = 4;
 
 // One block per row of P (B * hp rows). Row `row` holds the prefix sums of
 // padded row r = row % hp of field b = row / hp; the padded row is the
 // source row r - ly when that lies in [0, h), else all zeros. With
-// kStride = 1 this is the full prefix plane: P[.., 0] = 0 and P[.., j + 1]
-// = sum of padded columns 0..j, padded column j reading source column
-// j - lx when that lies in [0, w). With kStride > 1 only P[.., k * kStride]
-// is written, at index k < pq: the fused route's carry plane.
+// kStride = 1 (the wide route, called with hp = h and ly = 0: the field
+// rows only) P[.., 0] = 0 and P[.., j + 1] = sum of padded columns 0..j,
+// padded column j reading source column j - lx when that lies in [0, w).
+// With kStride > 1 only P[.., k * kStride] is written, at index k < pq:
+// the fused route's carry plane.
 template <int kStride>
 __global__ void __launch_bounds__(kScanThreads)
 disk_sat_row_scan(const float* __restrict__ x, float* __restrict__ p, int h,
@@ -145,41 +175,226 @@ disk_sat_row_scan(const float* __restrict__ x, float* __restrict__ p, int h,
   }
 }
 
-// Wide route: one thread per output pixel (b, y, x). `table` holds n_groups
-// records of (a, b, first_row, end_row) followed by the row indices they
-// point into; the sums run in table order so they match the twin.
-__global__ void disk_sat_run_sum(const float* __restrict__ p,
-                                 const int* __restrict__ table, int n_groups,
-                                 float* __restrict__ out, int hp, int wq,
-                                 int h_out, int w_out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w_out) return;
-  const int64_t b = blockIdx.z;
-  const int* rows = table + 4 * n_groups;
-  for (int y = blockIdx.y; y < h_out; y += gridDim.y) {
-    const float* pb = p + (b * hp + y) * static_cast<int64_t>(wq);
-    float acc = 0.0f;
-    for (int g = 0; g < n_groups; ++g) {
-      const int a = table[4 * g];
-      const int bc = table[4 * g + 1];
-      const int r0 = table[4 * g + 2];
-      const int r1 = table[4 * g + 3];
-      float hi = 0.0f;
-      float lo = 0.0f;
-      for (int i = r0; i < r1; ++i) {
-        const float* pr = pb + rows[i] * static_cast<int64_t>(wq);
-        if (i == r0) {
-          hi = pr[x + bc + 1];
-          lo = pr[x + a];
-        } else {
-          hi += pr[x + bc + 1];
-          lo += pr[x + a];
-        }
-      }
-      const float term = hi - lo;
-      acc = g == 0 ? term : acc + term;
+// Wide route. P holds only the h field rows of each field (pitch pq, a
+// multiple of 4): padded row y + r of the twin is field row y + r - ly,
+// and outside [0, h) its prefix row is all zeros, so it adds exactly +0.0
+// and is left out. The plan (ops/cuda/disk_sat.py::wide_plan) cuts the
+// run table's rows, in table order, into chunks; a chunk stages bands of
+// consecutive kernel rows as two column strips each, plus its steps'
+// records (lo_off, hi_off, lo_pitch | hi_pitch << 16, r | (span - 1) << 28
+// | ends << 30).
+struct WideChunk {
+  int4 head;  // rec_begin, rec_end, band_begin, band_end
+  int4 size;  // stage floats, groups that end in the chunk, unused x 2
+};
+struct WideBand {
+  int4 rows;   // r_s, staged rows, lo_col, lo_pitch
+  int4 strip;  // hi_col, hi_pitch, lo_base, hi_base
+};
+
+// True when a band of kernel rows [r_s, r_s + staged - kTileH] meets the
+// field for some output row of the tile starting at y0.
+__device__ __forceinline__ bool wide_band_live(const WideBand& band, int y0,
+                                               int ly, int h) {
+  const int r_s = band.rows.x;
+  const int r_e = r_s + band.rows.y - kTileH;
+  return y0 + kTileH - 1 + r_e >= ly && y0 + r_s < ly + h;
+}
+
+// The first chunk from c on that meets the field for the tile at y0 (or
+// n_chunks). `ends` is set when a chunk passed over ends a group: its rows
+// add nothing here, but the group's hi - lo must still join the sum there.
+__device__ __forceinline__ int wide_next_live(const WideChunk* chunks,
+                                              const WideBand* bands, int c,
+                                              int n_chunks, int y0, int ly,
+                                              int h, bool& ends) {
+  ends = false;
+  for (; c < n_chunks; ++c) {
+    const WideChunk chunk = {__ldg(&chunks[c].head), __ldg(&chunks[c].size)};
+    for (int i = chunk.head.z; i < chunk.head.w; ++i) {
+      const WideBand band = {__ldg(&bands[i].rows), __ldg(&bands[i].strip)};
+      if (wide_band_live(band, y0, ly, h)) return c;
     }
-    out[(b * h_out + y) * static_cast<int64_t>(w_out) + x] = acc;
+    ends = ends || chunk.size.y > 0;
+  }
+  return n_chunks;
+}
+
+// A group ends: hi - lo joins the running sum, and the next group's sums
+// start from +0.0.
+__device__ __forceinline__ void wide_close(float (&acc)[kRowsPerWarp][kColsPerLane],
+                                           float (&hi)[kRowsPerWarp][kColsPerLane],
+                                           float (&lo)[kRowsPerWarp][kColsPerLane]) {
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) {
+      acc[j][c] += hi[j][c] - lo[j][c];
+      hi[j][c] = 0.0f;
+      lo[j][c] = 0.0f;
+    }
+  }
+}
+
+// One step of kSpan consecutive kernel rows of a group: this warp's
+// kRowsPerWarp output rows read staged rows j .. j + kSpan - 1 of one window
+// of kRowsPerWarp + kSpan - 1 rows, each loaded once, added row by row in
+// table order.
+template <int kSpan>
+__device__ __forceinline__ void wide_step(float (&hi)[kRowsPerWarp][kColsPerLane],
+                                          float (&lo)[kRowsPerWarp][kColsPerLane],
+                                          const float* hb, const float* lb,
+                                          int hpitch, int lpitch) {
+#pragma unroll
+  for (int c = 0; c < kColsPerLane; ++c) {
+    float vh[kRowsPerWarp + kSpan - 1];
+    float vl[kRowsPerWarp + kSpan - 1];
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp + kSpan - 1; ++j) {
+      vh[j] = hb[j * hpitch + 32 * c];
+      vl[j] = lb[j * lpitch + 32 * c];
+    }
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      float sh = hi[j][c];
+      float sl = lo[j][c];
+#pragma unroll
+      for (int k = 0; k < kSpan; ++k) {
+        sh += vh[j + k];
+        sl += vl[j + k];
+      }
+      hi[j][c] = sh;
+      lo[j][c] = sl;
+    }
+  }
+}
+
+// Issues (does not wait for) the copies of `staged` padded rows from y0 +
+// r_s of one strip: columns x0 + col .. + pitch of P, zeros where the row
+// lies outside the field or the quad past the pitch.
+__device__ __forceinline__ void wide_stage_strip(float* dst, const float* pb,
+                                                 const float* p, int y0,
+                                                 int r_s, int staged, int col,
+                                                 int pitch, int ly, int h,
+                                                 int pq) {
+  const int qpr = pitch >> 2;  // quads per staged row
+  const int step_t = kTileThreads / qpr;
+  const int step_q = kTileThreads - step_t * qpr;
+  int t = threadIdx.x / qpr;
+  int q = threadIdx.x - t * qpr;
+  while (t < staged) {
+    const int fr = y0 + r_s + t - ly;
+    const int c = col + 4 * q;
+    const bool ok = fr >= 0 && fr < h && c < pq;
+    cp_async_16(dst + t * pitch + 4 * q,
+                ok ? pb + static_cast<int64_t>(fr) * pq + c : p, ok);
+    t += step_t;
+    q += step_q;
+    if (q >= qpr) {
+      q -= qpr;
+      ++t;
+    }
+  }
+}
+
+// Block (tx, ty, b) computes the kTileH x kTileW output tile at (ty *
+// kTileH, tx * kTileW) of field b, as disk_sat_tile does: warp w the rows
+// 4w .. 4w + 3, lane l the columns l + 32c. The chunks that meet the field stream
+// through two stages of `stage_floats` floats in dynamic shared memory:
+// the next chunk's copies fly while the current one is summed. A step is
+// one kernel row, or up to kWideSpan consecutive rows of one group read
+// from one window of staged rows (disk_sat_tile does it for two); a warp
+// skips a step whose rows lie outside the field for all its output rows.
+// A group's partial sums stay in registers across chunks.
+__global__ void __launch_bounds__(kTileThreads)
+disk_sat_wide(const float* __restrict__ p, const int* __restrict__ plan,
+              int n_chunks, int n_bands, int stage_floats,
+              float* __restrict__ out, int h, int ly, int pq, int h_out,
+              int w_out, int tiles_y) {
+  extern __shared__ __align__(16) float smem[];
+  const WideChunk* chunks = reinterpret_cast<const WideChunk*>(plan);
+  const WideBand* bands = reinterpret_cast<const WideBand*>(chunks + n_chunks);
+  const int4* recs = reinterpret_cast<const int4*>(bands + n_bands);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int yl0 = warp * kRowsPerWarp;
+  const int64_t b = blockIdx.z;
+  const int x0 = blockIdx.x * kTileW;
+  const float* pb = p + b * h * static_cast<int64_t>(pq);
+
+  auto stage = [&](int c, float* buf, int y0) {
+    const int4 head = __ldg(&chunks[c].head);
+    for (int q = threadIdx.x; q < head.y - head.x; q += kTileThreads) {
+      cp_async_16(buf + 4 * q, recs + head.x + q, true);
+    }
+    for (int i = head.z; i < head.w; ++i) {
+      const WideBand band = {__ldg(&bands[i].rows), __ldg(&bands[i].strip)};
+      if (!wide_band_live(band, y0, ly, h)) continue;  // its steps are all skipped
+      wide_stage_strip(buf + band.strip.z, pb, p, y0, band.rows.x, band.rows.y,
+                       x0 + band.rows.z, band.rows.w, ly, h, pq);
+      wide_stage_strip(buf + band.strip.w, pb, p, y0, band.rows.x, band.rows.y,
+                       x0 + band.strip.x, band.strip.y, ly, h, pq);
+    }
+  };
+
+  for (int ty = blockIdx.y; ty < tiles_y; ty += gridDim.y) {
+    const int y0 = ty * kTileH;
+    const int yw = y0 + yl0;  // this warp's first output row
+    float acc[kRowsPerWarp][kColsPerLane] = {};
+    // A group's partial sums start at +0.0: 0 + v is v for every prefix
+    // value (P holds no -0.0: its sums start from +0.0), so the sums keep
+    // the twin's bits, and a group whose rows were all skipped adds +0.0.
+    float hi[kRowsPerWarp][kColsPerLane] = {};
+    float lo[kRowsPerWarp][kColsPerLane] = {};
+    bool ends;  // no group is open before the first chunk
+    int cur = wide_next_live(chunks, bands, 0, n_chunks, y0, ly, h, ends);
+    if (cur < n_chunks) stage(cur, smem, y0);
+    cp_async_commit();
+    for (int k = 0; cur < n_chunks; ++k) {
+      const int next = wide_next_live(chunks, bands, cur + 1, n_chunks, y0, ly, h, ends);
+      if (next < n_chunks) stage(next, smem + ((k + 1) & 1) * stage_floats, y0);
+      cp_async_commit();
+      cp_async_wait_group<1>();
+      __syncthreads();
+      const float* buf = smem + (k & 1) * stage_floats;
+      const int4* rc = reinterpret_cast<const int4*>(buf);
+      const int4 head = __ldg(&chunks[cur].head);
+      const int n_rec = head.y - head.x;  // >= 1
+      int4 e = rc[0];
+      for (int i = 0; i < n_rec; ++i) {
+        const int4 en = rc[i + 1 < n_rec ? i + 1 : i];  // the next step's, early
+        const int r = e.w & 0x0fffffff;
+        const int span = ((e.w >> 28) & 3) + 1;
+        const int lpitch = e.z & 0xffff;
+        const int hpitch = e.z >> 16;
+        if (yw + kRowsPerWarp - 1 + r + span - 1 >= ly && yw + r < ly + h) {
+          const float* lb = buf + e.x + yl0 * lpitch + lane;
+          const float* hb = buf + e.y + yl0 * hpitch + lane;
+          switch (span) {
+            case 1: wide_step<1>(hi, lo, hb, lb, hpitch, lpitch); break;
+            case 2: wide_step<2>(hi, lo, hb, lb, hpitch, lpitch); break;
+            case 3: wide_step<3>(hi, lo, hb, lb, hpitch, lpitch); break;
+            default: wide_step<kWideSpan>(hi, lo, hb, lb, hpitch, lpitch); break;
+          }
+        }
+        if ((e.w >> 30) != 0) wide_close(acc, hi, lo);
+        e = en;
+      }
+      if (ends) wide_close(acc, hi, lo);  // a group ended in a chunk passed over
+      __syncthreads();  // the next iteration stages into this buffer
+      cur = next;
+    }
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      const int y = yw + j;
+      if (y >= h_out) continue;
+      float* orow = out + (b * h_out + y) * static_cast<int64_t>(w_out);
+#pragma unroll
+      for (int c = 0; c < kColsPerLane; ++c) {
+        const int xo = x0 + lane + 32 * c;
+        if (xo < w_out) orow[xo] = acc[j][c];
+      }
+    }
   }
 }
 
@@ -340,26 +555,35 @@ disk_sat_tile(const float* __restrict__ x, const float* __restrict__ carry,
 
 }  // namespace
 
-// Wide route: the full prefix plane p (n_fields x hp x wq) and the run-sum
-// pass. Returns cudaGetLastError().
+// Wide route: the prefix plane of the field rows only, p (n_fields x h x
+// pq, pq >= wq a multiple of 4), then the chunked run sums with two stages
+// of `stage_floats` floats of dynamic shared memory. Returns
+// cudaGetLastError(), so a launch refused for its shared memory reaches
+// the wrapper.
 extern "C" int disk_sat_forward(const float* x, float* p, float* out,
-                                const int* table, int n_groups, int n_fields,
-                                int h, int w, int ly, int lx, int hp, int wq,
-                                int h_out, int w_out, cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(n_fields) * hp;
-  if (rows > 0) {
-    disk_sat_row_scan<1><<<static_cast<unsigned>(rows), kScanThreads, 0, stream>>>(
-        x, p, h, w, ly, lx, hp, wq - 1, wq);
-    const cudaError_t err = cudaGetLastError();
+                                const int* plan, int n_chunks, int n_bands,
+                                int stage_floats, int n_fields, int h, int w,
+                                int ly, int lx, int wq, int pq, int h_out,
+                                int w_out, cudaStream_t stream) {
+  if (n_fields <= 0 || h_out <= 0 || w_out <= 0) return 0;
+  const int64_t rows = static_cast<int64_t>(n_fields) * h;
+  disk_sat_row_scan<1><<<static_cast<unsigned>(rows), kScanThreads, 0, stream>>>(
+      x, p, h, w, 0, lx, h, wq - 1, pq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem_bytes = 2 * stage_floats * static_cast<int>(sizeof(float));
+  if (smem_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(disk_sat_wide,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (n_fields > 0 && h_out > 0 && w_out > 0) {
-    const int threads = 128;
-    const dim3 grid((w_out + threads - 1) / threads,
-                    h_out < 65535 ? h_out : 65535, n_fields);
-    disk_sat_run_sum<<<grid, threads, 0, stream>>>(p, table, n_groups, out, hp,
-                                                   wq, h_out, w_out);
-  }
+  const int tiles_y = (h_out + kTileH - 1) / kTileH;
+  const dim3 grid((w_out + kTileW - 1) / kTileW,
+                  tiles_y < 65535 ? tiles_y : 65535, n_fields);
+  disk_sat_wide<<<grid, kTileThreads, smem_bytes, stream>>>(
+      p, plan, n_chunks, n_bands, stage_floats, out, h, ly, pq, h_out, w_out,
+      tiles_y);
   return static_cast<int>(cudaGetLastError());
 }
 

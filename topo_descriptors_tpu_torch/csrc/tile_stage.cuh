@@ -3,7 +3,8 @@
 // for the kernel that uses it:
 //   * cp.async (disk_sat.cu): one 4-byte copy per value, issued by every
 //     thread without waiting, then one wait: the whole tile's loads are in
-//     flight together;
+//     flight together (the fused route); or 16-byte copies grouped per
+//     stage of a double buffer (the wide route);
 //   * stage_row (sx_block.cu, sx_sweep.cu): one warp per row, one 16-byte load per lane
 //     where the row is aligned.
 
@@ -25,6 +26,27 @@ static __device__ __forceinline__ void cp_async_f32(float* dst, const float* src
 // tile to the block.
 static __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 16 bytes, dst = *src when `valid`, else zeros; both addresses 16-byte
+// aligned. Copies are grouped by cp_async_commit() and waited for by
+// group (cp_async_wait_group<N>: all but the N most recent groups done),
+// so one stage of a double buffer lands while the other is read.
+static __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                                   bool valid) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copies source columns [c0, c0 + n) of `src` (a row of w floats, or

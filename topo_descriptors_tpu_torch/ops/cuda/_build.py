@@ -44,9 +44,9 @@ SMEM_PER_SM = 233_472
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, p, out, table, n_groups, n_fields, h, w, ly, lx, hp, wq, h_out,
-    # w_out, stream
-    "disk_sat_forward": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
+    # x, prefix, out, plan, n_chunks, n_bands, stage_floats, n_fields, h, w,
+    # ly, lx, wq, pq, h_out, w_out, stream
+    "disk_sat_forward": (_P, _P, _P, _P) + (_I,) * 12 + (_P,),
     # x, carry, out, table, n_groups, table_len, n_fields, h, w, ly, lx, hp,
     # wq, kh, kw, h_out, w_out, smem_bytes, stream
     "disk_sat_fused_forward": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),

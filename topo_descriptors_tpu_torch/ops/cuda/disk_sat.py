@@ -5,16 +5,19 @@ its launcher ``disk_conv_sat_pallas``). The CUDA kernels are in
 ``csrc/disk_sat.cu``; its header says what bounds them on the H100 (load
 instructions: 2 x runs prefix reads per pixel) and what the two routes do
 about that: ``"fused"`` stages a tile of the field in shared memory and
-scans it there, ``"wide"`` (kernels whose tile does not fit) keeps the
-full prefix plane in device memory. :func:`route` chooses between them
-from the kernel's shape and run table and the shared-memory limit alone.
+scans it there; ``"wide"`` (kernels whose tile does not fit) scans only
+the field's rows into a prefix plane in device memory and streams it
+through shared memory in chunks of kernel rows (:func:`wide_plan`, built
+on the host and cached in place of the run table). :func:`route` chooses
+between them from the kernel's shape and run table and the shared-memory
+limit alone.
 :func:`disk_conv_sat_plain` is the same algorithm in plain PyTorch — the
 transcription of the XLA twin ``ops/conv.py::_conv2d_sat``.
 
 :func:`disk_conv_sat` routes by the tensor: CPU tensors take the plain
 twin, CUDA tensors the kernel, anything else raises. ``LAUNCHES`` counts
 the convolutions run on the card and ``ROUTE_LAUNCHES`` splits them by
-route; ``TABLES`` keeps the run tables on their device.
+route; ``TABLES`` keeps each kernel's run table or wide plan on its device.
 """
 
 from __future__ import annotations
@@ -30,10 +33,18 @@ LAUNCHES = 0
 ROUTE_LAUNCHES = {"fused": 0, "wide": 0}
 TABLES = TableCache()
 
-# csrc/disk_sat.cu's output tile (kTileH x kTileW)
+# csrc/disk_sat.cu's output tile (kTileH x kTileW), both routes
 TILE_H, TILE_W = 32, 128
 # widest kernel whose staged rows a warp scans in registers (kSegMax = 10)
 SCAN_MAX_KW = 32 * 10 - TILE_W + 1
+
+# the wide route's chunks (csrc/disk_sat.cu::disk_sat_wide): two stages
+# fill the block's shared memory; a strip's run columns spread over at most
+# WIDE_SPREAD columns
+WIDE_STAGE_FLOATS = _build.SMEM_PER_BLOCK // 8 // 4 * 4
+WIDE_SPREAD = 64
+# most consecutive rows of one group a step reads from one window (kWideSpan)
+WIDE_SPAN = 4
 
 _INT_MAX = 2**31 - 1
 
@@ -80,14 +91,119 @@ def route(kshape, table_len: int) -> str:
     return "fused" if fits else "wide"
 
 
-def device_table(runs, pads, device):
-    """``(table tensor on device, n_groups, table_len)``, built and
-    uploaded once per (runs, pads, device) while it stays in ``TABLES``."""
-    key = (tuple(map(tuple, runs)), tuple(map(tuple, pads)), torch.device(device))
+def _steps(rows):
+    """The wide route's steps over a chunk's ``(r, a, b, last)`` rows, in
+    order: ``(index, span, ends)``. A step is up to ``WIDE_SPAN``
+    consecutive rows r, r + 1, ... of one group (one window of staged rows
+    serves them all); ``ends`` when the group's last row is in it."""
+    steps, i = [], 0
+    while i < len(rows):
+        span = 1
+        while (span < WIDE_SPAN and i + span < len(rows) and not rows[i + span - 1][3]
+               and rows[i + span][0] == rows[i][0] + span):
+            span += 1
+        steps.append((i, span, rows[i + span - 1][3]))
+        i += span
+    return steps
+
+
+def _chunk_layout(recs):
+    """``(bands, stage_floats)`` of one wide-route chunk, ``recs`` its
+    ``(r, a, b, last)`` rows: the chunk's kernel rows cut into bands of
+    consecutive rows, each staged as ``rows + TILE_H - 1`` padded rows of
+    two column strips (run starts ``a``, run ends ``b + 1``), each strip
+    ``TILE_W`` wide plus the spread of its columns, on 16-byte bounds.
+    Shared memory holds the steps' records (4 words each), then every
+    band's lo and hi strips."""
+    rows = {r for r, _, _, _ in recs}
+    starts = sorted(r for r in rows if r - 1 not in rows)
+    bands, base = [], 4 * len(_steps(recs))
+    for r_s in starts:
+        r_e = r_s
+        while r_e + 1 in rows:
+            r_e += 1
+        mine = [(a, b) for r, a, b, _ in recs if r_s <= r <= r_e]
+        lo_col = min(a for a, _ in mine) & ~3
+        hi_col = (min(b for _, b in mine) + 1) & ~3
+        lo_pitch = -(-(max(a for a, _ in mine) + TILE_W - lo_col) // 4) * 4
+        hi_pitch = -(-(max(b for _, b in mine) + 1 + TILE_W - hi_col) // 4) * 4
+        staged = r_e - r_s + TILE_H
+        bands.append((r_s, staged, lo_col, lo_pitch, hi_col, hi_pitch, base,
+                      base + staged * lo_pitch))
+        base += staged * (lo_pitch + hi_pitch)
+    return bands, base
+
+
+def wide_plan(runs, stage_floats: int = WIDE_STAGE_FLOATS):
+    """``(plan, n_chunks, n_bands, stage_floats)``: the wide route's chunks
+    as ``csrc/disk_sat.cu::disk_sat_wide`` reads them, one int32 array.
+
+    The run table's rows, in table order (groups in order, each group's
+    rows in order: the twin's summation order), are cut into chunks of
+    consecutive rows, each summed in steps (:func:`_steps`); a group may
+    span chunks, its partial sums stay in registers. A chunk takes rows
+    while its stage fits in ``stage_floats`` and no strip spreads its
+    columns over more than ``WIDE_SPREAD`` (near the top and bottom of a
+    disk ``a`` moves fast from row to row: a new chunk is cheaper than a
+    wide strip). One row always fits in the kernel's stage (8452 floats);
+    the tests pass a smaller ``stage_floats`` to replay short chunks.
+
+    Layout: per chunk two int4 ``(rec_begin, rec_end, band_begin,
+    band_end), (stage_floats, groups ending in it, 0, 0)``; per band two
+    int4 ``(r_s, staged_rows, lo_col, lo_pitch), (hi_col, hi_pitch,
+    lo_base, hi_base)``; per step one int4 ``(lo_off, hi_off, lo_pitch |
+    hi_pitch << 16, r | (span - 1) << 28 | ends << 30)``, offsets into the
+    stage of the tile's first output row and column. The returned
+    ``stage_floats`` is the largest chunk's."""
+    recs = [(r, a, bcol, i == len(rows) - 1)
+            for a, bcol, rows in group_runs(runs) for i, r in enumerate(rows)]
+    limit = TILE_W + 4 + WIDE_SPREAD
+    chunks, cur, layout = [], [], ([], 0)
+    for rec in recs:
+        trial = _chunk_layout(cur + [rec])
+        fits = trial[1] <= stage_floats and all(
+            b[3] <= limit and b[5] <= limit for b in trial[0])
+        if cur and not fits:
+            chunks.append((cur, layout))
+            cur, trial = [], _chunk_layout([rec])
+        cur, layout = cur + [rec], trial
+    if cur:
+        chunks.append((cur, layout))
+    head, band_rows, rec_rows = [], [], []
+    for chunk, (bands, floats) in chunks:
+        steps = _steps(chunk)
+        head.append((len(rec_rows), len(rec_rows) + len(steps), len(band_rows),
+                     len(band_rows) + len(bands), floats, sum(e for _, _, e in steps), 0, 0))
+        for i, span, ends in steps:
+            r, a, bcol, _ = chunk[i]
+            band = next(b for b in bands if b[0] <= r < b[0] + b[1] - TILE_H + 1)
+            r_s, _, lo_col, lo_pitch, hi_col, hi_pitch, lo_base, hi_base = band
+            rec_rows.append((lo_base + (r - r_s) * lo_pitch + a - lo_col,
+                             hi_base + (r - r_s) * hi_pitch + bcol + 1 - hi_col,
+                             lo_pitch | hi_pitch << 16, r | (span - 1) << 28 | int(ends) << 30))
+        band_rows.extend(bands)
+    plan = np.concatenate([np.asarray(head, np.int32).reshape(-1),
+                           np.asarray(band_rows, np.int32).reshape(-1),
+                           np.asarray(rec_rows, np.int32).reshape(-1)])
+    return plan, len(head), len(band_rows), max((h[4] for h in head), default=0)
+
+
+def device_table(runs, kshape, device):
+    """``(route, array on device, ints)``: :func:`route`'s choice for the
+    kernel, with the fused route's run table and ``(n_groups, table_len)``,
+    or the wide route's plan (:func:`wide_plan`) and ``(n_chunks, n_bands,
+    stage_floats)``. One entry per (runs, kshape, device), built and
+    uploaded once while it stays in ``TABLES``; the pads reach the kernels
+    as launch arguments, so 'same' and 'valid' calls share it."""
+    key = (tuple(map(tuple, runs)), tuple(kshape), torch.device(device))
 
     def build():
         table, n_groups = run_table(runs)
-        return upload(table, device), n_groups, len(table)
+        which = route(kshape, len(table))
+        if which == "fused":
+            return which, upload(table, device), (n_groups, len(table))
+        plan, n_chunks, n_bands, stage_floats = wide_plan(runs)
+        return which, upload(plan, device), (n_chunks, n_bands, stage_floats)
 
     return TABLES.get(key, build)
 
@@ -142,12 +258,12 @@ def disk_conv_sat(xs: torch.Tensor, kshape, runs, pads) -> torch.Tensor:
     if b * hp > _INT_MAX or b > 65535 or max(hp, wq) > _INT_MAX:
         raise ValueError(f"field stack {tuple(xs.shape)} exceeds the launch grid")
     out = torch.empty((b, h_out, w_out), dtype=torch.float32, device=xs.device)
-    table, n_groups, table_len = device_table(runs, pads, xs.device)
-    which = route(kshape, table_len)
+    which, table, ints = device_table(runs, kshape, xs.device)
     lib = _build.library()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         if which == "fused":
+            n_groups, table_len = ints
             carry = torch.empty((b, hp, -(-w_out // TILE_W)), dtype=torch.float32,
                                 device=xs.device)
             err = lib.disk_sat_fused_forward(
@@ -156,10 +272,13 @@ def disk_conv_sat(xs: torch.Tensor, kshape, runs, pads) -> torch.Tensor:
                 fused_smem_bytes(kshape, table_len), stream,
             )
         else:
-            scratch = torch.empty((b, hp, wq), dtype=torch.float32, device=xs.device)
+            n_chunks, n_bands, stage_floats = ints
+            pq = -(-wq // 4) * 4  # 16-byte rows for the stages' copies
+            prefix = torch.empty((b, h, pq), dtype=torch.float32, device=xs.device)
             err = lib.disk_sat_forward(
-                xs.data_ptr(), scratch.data_ptr(), out.data_ptr(), table.data_ptr(),
-                n_groups, b, h, w, ly, lx, hp, wq, h_out, w_out, stream,
+                xs.data_ptr(), prefix.data_ptr(), out.data_ptr(), table.data_ptr(),
+                n_chunks, n_bands, stage_floats, b, h, w, ly, lx, wq, pq, h_out, w_out,
+                stream,
             )
     _build.check(err, f"disk_sat ({which})")
     LAUNCHES += 1

@@ -15,11 +15,16 @@ Phases, each printing its lines:
    667 and 3333 px; 'same' and 'valid', one field and the STD stack; 201
    px also on a 50 x 61 crop),
    the Sx kernel at 500 m and 2000 m (every side of the one-sided halo)
-   and with a 10 km fan of the global route, also on a 50 x 61 grid
-   smaller than the 2000 m halo; the Sx sweep and fan kernels on all four
-   grids (36-azimuth fans, north-up and without the zero border on the
-   1000 x 1337 grid, the radius_min and distance-0 fans, a 10 km fan of
-   the global route), also against per-azimuth ``sx_block``, bit for bit;
+   and on its chunked route (halos above one staged box: 10 km at 45
+   degrees on every grid; 10 km at 30 degrees and north-up and 20 km on
+   all but 8192 x 8192), also on a 50 x 61 grid smaller than the 2000 m
+   halo, a one-chunk plan against the tile route and a plan of short
+   chunks against the model's plan, bit for bit; the Sx sweep and fan
+   kernels on all four grids (36-azimuth fans, north-up and without the
+   zero border on the 1000 x 1337 grid, the radius_min and distance-0
+   fans, 10 km fans of the sweep's global and the fan's chunked route, 36
+   azimuths at 900 x 1440), also against per-azimuth ``sx_block``, bit for
+   bit;
    every route of every kernel must have run;
 4. run the port's drivers on the card (TPI fused and smoothed, TPI+STD,
    Sx at 500 m and 2000 m, the 36-azimuth Sx sweep at 2000 m and 200 m)
@@ -27,7 +32,10 @@ Phases, each printing its lines:
    check that every kernel was launched (all four on their shared-memory
    routes), count the launches of ``compute_tpi(scales=
    [2000])`` and ``compute_sx(radius=500)`` alone, and compare every
-   output with the same calls run on the plain twins;
+   output with the same calls run on the plain twins; then ``compute_sx``
+   at 45 degrees and the 36-azimuth ``compute_sx_sweep`` at 10 km, which
+   must launch the chunked routes of ``sx_block`` and ``sx_fan`` and no
+   ``global`` route, against the same calls on the twins;
 5. time each kernel against its twin (CUDA events, median of 20; a twin
    that takes over a second per call, median of 3) beside its bound (the
    larger of its operations over the float32 peak and its bytes over the
@@ -41,7 +49,9 @@ Phases, each printing its lines:
    phase 3, then timed with its twin (a call over 200 ms: median of 3),
    bound (kernel rows inside the field only), launches and, where it runs
    in well under 10 s, the library call; the whole ``ops.tpi`` at 3333 px
-   with its host parts; and the Sx kernels' global routes at 10 km;
+   with its host parts; and the Sx kernels at 10 km (``sx_block``'s and
+   ``sx_fan``'s chunked routes, ``sx_sweep``'s global route) on 900 x 1440
+   and 8192 x 8192, the 8192 x 8192 fan's twin on a crop;
 6. run the third slice on the 900 x 1440 grid with NaN holes, at the
    reference's scales: ``compute_dem``, ``compute_gradient`` (both checked
    against the same drivers on the CPU), ``compute_valley_ridge`` in valley
@@ -155,8 +165,8 @@ def build():
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("row_scanILi1E", "row_scanILi128E", "disk_sat_wide",
-                                       "disk_sat_tile", "sx_block_tile", "sx_block_kernel",
-                                       "sx_sweep_kernel", "sx_fan_kernel", "sx_sweep_tile",
+                                       "disk_sat_tile", "sx_block_tile", "sx_block_chunked",
+                                       "sx_sweep_kernel", "sx_fan_chunked", "sx_sweep_tile",
                                        "sx_fan_tile")
                            if k in line), line.split("'")[1][:40])
         elif kernel and ("registers" in line or "spill" in line):
@@ -246,19 +256,25 @@ def sx_cases(grid):
     """(name, offsets, distances, border) of the deduplicated rays checked
     on ``grid``: the main path's 500 m and 2000 m, the distance-0 and
     radius_min fans, every side of the one-sided halo at 2000 m (azimuths
-    90, 180, 270), and at 900x1440 a 10 km fan at 45 degrees whose halo
-    does not fit in shared memory: the global route."""
+    90, 180, 270), and the halos that do not fit in shared memory, the
+    chunked route: 10 km at 45 degrees on every grid, and on every grid but
+    8192x8192 10 km at 30 degrees, 10 km north-up (dy < 0) and 20 km at
+    45."""
     from topo_descriptors_tpu_torch.host import sx_dedupe, sx_offsets
 
-    cases = [("r500_az0", 0.0, 500.0, 0.0), ("r2000_az0", 0.0, 2000.0, 0.0),
-             ("r250_az225_distance0", 225.0, 250.0, 0.0),
-             ("r500_az0_radius_min100", 0.0, 500.0, 100.0),
-             ("r2000_az90", 90.0, 2000.0, 0.0), ("r2000_az180", 180.0, 2000.0, 0.0),
-             ("r2000_az270", 270.0, 2000.0, 0.0)]
-    if grid == "900x1440":
-        cases.append(("r10000_az45_global", 45.0, 10_000.0, 0.0))
-    for name, az, radius, rmin in cases:
-        o, d, b = sx_offsets(az, radius, 30.0, 30.0, radius_min=rmin)
+    # (name, azimuth, radius, radius_min, dy)
+    cases = [("r500_az0", 0.0, 500.0, 0.0, 30.0), ("r2000_az0", 0.0, 2000.0, 0.0, 30.0),
+             ("r250_az225_distance0", 225.0, 250.0, 0.0, 30.0),
+             ("r500_az0_radius_min100", 0.0, 500.0, 100.0, 30.0),
+             ("r2000_az90", 90.0, 2000.0, 0.0, 30.0), ("r2000_az180", 180.0, 2000.0, 0.0, 30.0),
+             ("r2000_az270", 270.0, 2000.0, 0.0, 30.0),
+             ("r10000_az45", 45.0, 10_000.0, 0.0, 30.0)]
+    if grid != "8192x8192":  # the twin at 10 km on 8192^2 takes seconds a call
+        cases += [("r10000_az30", 30.0, 10_000.0, 0.0, 30.0),
+                  ("r10000_az45_northup", 45.0, 10_000.0, 0.0, -30.0),
+                  ("r20000_az45", 45.0, 20_000.0, 0.0, 30.0)]
+    for name, az, radius, rmin, dy in cases:
+        o, d, b = sx_offsets(az, radius, 30.0, dy, radius_min=rmin)
         o, d = sx_dedupe(o, d)
         yield name, o, d, b
 
@@ -280,13 +296,52 @@ def check_sx(name, dem, o, d, b, grid):
     return err
 
 
+# a chunked-route stage so short that chunks end inside distance groups
+SHORT_STAGE = 20 * 1024
+
+
+def check_chunked(dem, grid):
+    """The chunked route of ``sx_block`` against the other plans and the
+    tile route, bit for bit: a plan of one chunk (2000 m at azimuth 90, whose
+    box fits one stage) against the tile route, and at 10 km (45 degrees)
+    a plan of short stages, whose chunks end inside groups, against the
+    plan the cost model picks for the grid."""
+    from topo_descriptors_tpu_torch.host import sx_dedupe, sx_offsets
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block
+
+    o, d, b = sx_offsets(90.0, 2000.0, 30.0, 30.0)
+    o, d = sx_dedupe(o, d)
+    _, n_one, _ = sx_block.device_plan(o, d, b, dem.device)
+    check(n_one == 1, f"2000 m: {n_one} chunks, not one")
+    one, tile = sx_block.sx_block_chunked(dem, o, d, b), sx_block.sx_block(dem, o, d, b)
+    o, d, b = sx_offsets(45.0, 10_000.0, 30.0, 30.0)
+    o, d = sx_dedupe(o, d)
+    plan, n_short, _ = sx_block.device_plan(o, d, b, dem.device, SHORT_STAGE)
+    splits = int(((plan.cpu().numpy()[4 : 4 + 8 * n_short].reshape(-1, 8)[:, 3]
+                   & sx_block.CARRY_OUT) > 0).sum())
+    n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+    busy = sx_block.busy_blocks_per_sm(dem.shape, b, True, n_sms)
+    _, n_default, _ = sx_block.device_plan(o, d, b, dem.device, None, busy)
+    short = sx_block.sx_block_chunked(dem, o, d, b, stage_bytes=SHORT_STAGE)
+    default = sx_block.sx_block(dem, o, d, b)
+    torch.cuda.synchronize()
+    check(same_bits(one, tile), f"sx_block {grid}: the one-chunk plan differs from the tile route")
+    check(splits > 0 and same_bits(short, default),
+          f"sx_block {grid}: {n_short} short chunks ({splits} ending inside a group) differ "
+          f"from the model's {n_default}")
+    print(f"[parity] sx_block chunked {grid}: one-chunk plan (2000 m, az 90) bit-equal to the tile "
+          f"route; at 10 km az 45 {n_short} chunks of {SHORT_STAGE} B ({splits} ending inside a "
+          f"group) bit-equal to the model's {n_default}")
+
+
 def sweep_cases(grid):
     """(name, offsets, distances, border, zero_border) of the deduplicated
     fans checked on ``grid``: the 36-azimuth sweep at both radii of
     BASELINE.json configs[3], a ragged radius_min fan, the distance-0 fan
-    and a 10 km fan whose 45-degree box does not fit in shared memory (the
-    global route) at 900x1440; the 36-azimuth sweep at 500 m at 8192x8192;
-    at 1000x1337 (no tile multiple) the 2000 m sweep north-up (dy < 0) and
+    and 10 km fans whose boxes do not fit in shared memory (the sweep's
+    global route, the fan's chunked route; azimuths 0 and 45 and the
+    36-azimuth sweep) at 900x1440; the 36-azimuth sweep at 500 m at
+    8192x8192; at 1000x1337 (no tile multiple) the 2000 m sweep north-up (dy < 0) and
     without the zero border, and the 500 m one; at 50x61 (smaller than the
     2000 m halo) the 2000 m sweep and the 10 km fan."""
     from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
@@ -297,12 +352,13 @@ def sweep_cases(grid):
                      ("36az_r2000", SWEEP_AZIMUTHS, 2000.0, 0.0, 30.0, True),
                      ("r300_radius_min100", (10, 200, 355), 300.0, 100.0, 30.0, True),
                      ("r250_distance0", (225, 45), 250.0, 0.0, 30.0, True),
-                     ("r10000_global", (0, 45), 10_000.0, 0.0, 30.0, True)],
+                     ("r10000", (0, 45), 10_000.0, 0.0, 30.0, True),
+                     ("36az_r10000", SWEEP_AZIMUTHS, 10_000.0, 0.0, 30.0, True)],
         "8192x8192": [("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0, 30.0, True)],
         "1000x1337": [("36az_r2000_northup_nozero", SWEEP_AZIMUTHS, 2000.0, 0.0, -30.0, False),
                       ("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0, 30.0, True)],
         "50x61": [("36az_r2000", SWEEP_AZIMUTHS, 2000.0, 0.0, 30.0, True),
-                  ("r10000_global", (0, 45), 10_000.0, 0.0, 30.0, True)],
+                  ("r10000", (0, 45), 10_000.0, 0.0, 30.0, True)],
     }[grid]
     for name, azimuths, radius, rmin, dy, zero_border in cases:
         o, d, b = sx_sweep_offsets(azimuths, radius, 30.0, dy, radius_min=rmin)
@@ -319,14 +375,16 @@ def sweep_routes(o, d, b, device):
     from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
 
     t = sx_sweep.device_tables(o, d, b, device)
-    return {"sx_sweep": sx_sweep.route(t.sweep_smem), "sx_fan": sx_sweep.route(t.fan_smem)}
+    return {"sx_sweep": sx_sweep.route("sx_sweep", t.sweep_smem),
+            "sx_fan": sx_sweep.route("sx_fan", t.fan_smem)}
 
 
 def check_sweep(name, dem, o, d, b, zero_border, grid):
     """Both fan kernels against the twin, plane by plane (the (36, 8192,
     8192) stacks are 9.7 GB each), and bit for bit against sx_block on the
     azimuth's table: the three kernels share the per-pixel code and the
-    1/distance groups."""
+    1/distance groups. Returns the errors and the twin's time over the
+    planes (CUDA events around each plane's call, summed)."""
     from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
 
     routes = sweep_routes(o, d, b, dem.device)
@@ -334,8 +392,11 @@ def check_sweep(name, dem, o, d, b, zero_border, grid):
             "sx_fan": sx_sweep.sx_fan(dem, o, d, b, 10.0, zero_border)}
     torch.cuda.synchronize()
     errs = dict.fromkeys(outs, 0.0)
+    twin_ms = 0.0
     for a in range(len(o)):
-        ref = sx_sweep.sx_sweep_plain(dem, o[a : a + 1], d[a : a + 1], b, 10.0, zero_border)[0]
+        ref, ms = timed(lambda: sx_sweep.sx_sweep_plain(
+            dem, o[a : a + 1], d[a : a + 1], b, 10.0, zero_border)[0])
+        twin_ms += ms
         one = sx_block.sx_block(dem, o[a], d[a], b, 10.0, zero_border)  # pad rows: NaN, dropped
         for kernel, out in outs.items():
             check(torch.equal(torch.isnan(out[a]), torch.isnan(ref)),
@@ -350,7 +411,7 @@ def check_sweep(name, dem, o, d, b, zero_border, grid):
           f"(tol {SX_ATOL}), NaN positions equal, every plane bit-equal to sx_block")
     for kernel, err in errs.items():
         check(err <= SX_ATOL, f"{kernel} {name} {grid}: {err} > {SX_ATOL}")
-    return errs
+    return errs, twin_ms
 
 
 # --- phase 4: the drivers ----------------------------------------------------
@@ -531,6 +592,53 @@ def check_sweep_drivers(dem_ds, main_out, other_out):
           "(r = 2000 m and 200 m) and to the other fan kernel at all 36 azimuths (r = 200 m)")
 
 
+# the 10 km driver calls: a halo too large for one staged box, so the
+# chunked routes of sx_block and sx_fan (auto)
+TEN_KM_CALLS = [("compute_sx", dict(azimuth=45, radius=10_000)),
+                ("compute_sx_sweep", dict(azimuths=SWEEP_AZIMUTHS, radius=10_000))]
+
+
+def run_10km_drivers(dem_ds, use_h5py):
+    """``compute_sx`` at azimuth 45 and the 36-azimuth ``compute_sx_sweep``
+    at 10 km on the card: each must launch its kernel's chunked route once
+    and no ``global`` route; their outputs against the same calls on the
+    twins, and the sweep's azimuth-130 plane against ``pipeline.sx``'s, bit
+    for bit. Returns the launches by kernel and by route."""
+    reset_launches()
+    start = time.perf_counter()
+    out, walls = run_drivers(dem_ds, TEN_KM_CALLS, use_h5py, prefix="km10_")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, routes = read_launches(), read_route_launches()
+    check(routes["sx_block"].get("chunked") == 1 and routes["sx_fan"].get("chunked") == 1
+          and all(routes[k].get("global", 0) == 0 for k in ("sx_block", "sx_fan")),
+          f"the 10 km drivers did not take the chunked routes alone: {routes}")
+    with plain_twins():
+        ref, ref_walls = run_drivers(dem_ds, TEN_KM_CALLS, use_h5py, prefix="km10_")
+    check(sorted(out) == sorted(ref) and len(out) == 1 + len(SWEEP_AZIMUTHS),
+          f"10 km outputs {sorted(out)}")
+    worst = 0.0
+    for name in sorted(out):
+        a, b = out[name].data, ref[name].data
+        check(a.shape == dem_ds.data.shape and np.isfinite(np.nanmax(np.abs(a))),
+              f"{name}: {a.shape}, no finite values")
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{name}: NaN positions differ")
+        worst = max(worst, float(np.nanmax(np.abs(a - b))))
+    check(worst <= SX_ATOL, f"10 km drivers: {worst} deg against the twins")
+    from topo_descriptors_tpu_torch import pipeline
+
+    single = pipeline.sx(dem_ds, azimuth=130, radius=10_000)  # sx_block's chunked route
+    check(np.array_equal(out["km10_1/SX_RADIUS10000_AZIMUTH130"].data.view(np.int32),
+                         single.view(np.int32)),
+          "the 10 km sweep's azimuth 130 differs from pipeline.sx")
+    print(f"[drivers] 10 km: compute_sx(azimuth=45) {walls[0]:.3f} s, compute_sx_sweep(36 "
+          f"azimuths) {walls[1]:.3f} s on the card ({ref_walls[0]:.3f} s, {ref_walls[1]:.3f} s "
+          f"on the twins); launches {launches}, per route {routes}; {1 + len(SWEEP_AZIMUTHS)} "
+          f"planes max|cuda-twins| {worst:.6g} deg (tol {SX_ATOL}), the sweep's azimuth 130 "
+          f"bit-equal to pipeline.sx ({wall:.3f} s)")
+    return launches, routes
+
+
 def check_against_recipes(dem_np):
     """TPI and Sx on the card against the reference's recipes in float64 on
     a small crop: ``scipy.signal.convolve`` for TPI, the per-pixel ray loop
@@ -561,6 +669,17 @@ def check_against_recipes(dem_np):
 
 
 # --- phase 5: timing -----------------------------------------------------------
+
+
+def timed(fn):
+    """(``fn()``, its ms on the card by CUDA events): one call, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
@@ -805,48 +924,169 @@ def whole_op_tpi(dem, smi_line):
     return ms
 
 
-def time_global_routes(grid, dem, smi_line):
-    """The Sx kernels' global routes (halos above 227 KB) at the 10 km fans
-    phase 3 holds: ``sx_block`` at 45 degrees, ``sx_sweep``/``sx_fan`` on
-    azimuths 0 and 45; kernel and twin beside the bound."""
+# phase 5's Sx route cases, all at 10 km: (label, kernel, grid, azimuths;
+# None for one azimuth at 45 degrees)
+SX_ROUTE_CASES = (("sx_block az 45 900x1440", "sx_block", "900x1440", None),
+                  ("sx_sweep az 0, 45 900x1440", "sx_sweep", "900x1440", (0, 45)),
+                  ("sx_fan az 0, 45 900x1440", "sx_fan", "900x1440", (0, 45)),
+                  ("sx_fan 36 az 900x1440", "sx_fan", "900x1440", SWEEP_AZIMUTHS),
+                  ("sx_block az 45 8192x8192", "sx_block", "8192x8192", None),
+                  ("sx_fan 36 az 8192x8192", "sx_fan", "8192x8192", SWEEP_AZIMUTHS))
+# the 36-azimuth twin at 10 km on 8192^2 would take minutes: on this crop
+TWIN_CROP = 1024
+TILE_OUTPUTS = 32 * 64  # outputs of the Sx kernels' tile
+
+
+def ran_route(routes, fn):
+    """(``fn()``, the routes whose launch count one call raised)."""
+    before = dict(routes)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [r for r, n in routes.items() if n > before.get(r, 0)]
+
+
+def time_sx_routes(grids, smi_line, twin_ms=None, twins=True):
+    """The Sx kernels where a halo does not fit one staged box, at 10 km
+    (``SX_ROUTE_CASES``): the kernel (CUDA events, median of 20, a call over
+    a second median of 3) with the route it ran, read from the launch
+    counts, so that the same function times an earlier package whose routes
+    have other names; the twin, its bound (``sx_work``) and the share. The
+    twins: median of 3 where over 0.1 s; the 36-azimuth twin at 900x1440 is
+    phase 3's one call (``twin_ms``); at 8192^2 the fan is held bit for bit
+    against ``sx_block`` per azimuth, and kernel and twin are timed and
+    compared on a ``TWIN_CROP``-square crop. ``twins=False``: kernels only."""
     from topo_descriptors_tpu_torch.host import (sx_dedupe, sx_offsets, sx_sweep_dedupe,
                                                  sx_sweep_offsets)
     from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
 
     o1, d1, b1 = sx_offsets(45.0, 10_000.0, 30.0, 30.0)
     o1, d1 = sx_dedupe(o1, d1)
-    offs, _, inv = sx_block.ray_groups(o1, d1)
-    fo, fd, fb = sx_sweep_offsets((0, 45), 10_000.0, 30.0, 30.0)
-    fo, fd = sx_sweep_dedupe(fo, fd)
-    routes = sweep_routes(fo, fd, fb, dem.device)
-    def fan_twin():
-        return sx_sweep.sx_sweep_plain(dem, fo, fd, fb, 10.0)
-
-    rows = {
-        "sx_block": (sx_block.route(sx_block.halo_box(offs), len(offs), len(inv)),
-                     lambda: sx_block.sx_block(dem, o1, d1, b1, 10.0),
-                     lambda: sx_block.sx_block_plain(dem, o1, d1, b1, 10.0),
-                     sx_work(dem.shape, o1, d1, b1), "az 45"),
-        "sx_sweep": (routes["sx_sweep"], lambda: sx_sweep.sx_sweep(dem, fo, fd, fb, 10.0),
-                     fan_twin, sx_work(dem.shape, fo, fd, fb), "az 0, 45"),
-        "sx_fan": (routes["sx_fan"], lambda: sx_sweep.sx_fan(dem, fo, fd, fb, 10.0),
-                   fan_twin, sx_work(dem.shape, fo, fd, fb), "az 0, 45"),
-    }
-    times, twins = {}, {}
-    for kernel, (route, fast, plain, work, azimuths) in rows.items():
-        check(route == "global", f"{kernel} 10 km: route {route}, not global")
+    twin_ms = dict(twin_ms or {})
+    times = {}
+    for label, kernel, grid, azimuths in SX_ROUTE_CASES:
+        dem = grids[grid]
+        if azimuths is None:
+            o, d, b = o1, d1, b1
+            fast = lambda: sx_block.sx_block(dem, o, d, b, 10.0)  # noqa: E731
+            plain = lambda: sx_block.sx_block_plain(dem, o, d, b, 10.0)  # noqa: E731
+            routes = sx_block.ROUTE_LAUNCHES
+        else:
+            o, d, b = sx_sweep_offsets(azimuths, 10_000.0, 30.0, 30.0)
+            o, d = sx_sweep_dedupe(o, d)
+            fast = lambda: getattr(sx_sweep, kernel)(dem, o, d, b, 10.0)  # noqa: E731
+            plain = lambda: sx_sweep.sx_sweep_plain(dem, o, d, b, 10.0)  # noqa: E731
+            routes = sx_sweep.ROUTE_LAUNCHES[kernel]
+        out, ran = ran_route(routes, fast)
+        crop_text = ""
+        if grid == "8192x8192" and azimuths is not None:
+            for a in range(len(o)):  # the planes against sx_block, bit for bit
+                check(same_bits(out[a], sx_block.sx_block(dem, o[a], d[a], b, 10.0)),
+                      f"{label}: azimuth {a} not bit-equal to sx_block")
+            if twins:
+                crop = dem[:TWIN_CROP, :TWIN_CROP].contiguous()
+                small = getattr(sx_sweep, kernel)(crop, o, d, b, 10.0)
+                ref, twin_ms[label] = timed(lambda: sx_sweep.sx_sweep_plain(crop, o, d, b, 10.0))
+                err = float(torch.nan_to_num(small - ref).abs().max())
+                check(torch.equal(torch.isnan(small), torch.isnan(ref)) and err <= SX_ATOL,
+                      f"{label}: {TWIN_CROP}^2 crop {err} against the twin")
+                t_crop = median_ms(lambda: getattr(sx_sweep, kernel)(crop, o, d, b, 10.0))
+                crop_text = (f"; on a {TWIN_CROP}^2 crop kernel {t_crop:.4f} ms against the twin's "
+                             f"one call {twin_ms[label]:.4f} ms, max|kernel-twin| {err:.6g} deg")
+        del out
         t_kernel, reps = slow_median_ms(fast)
-        if plain not in twins:  # the two fan kernels share one twin: timed once
-            twins[plain] = slow_median_ms(plain)
-        t_plain, plain_reps = twins[plain]
+        t_plain, plain_text = None, "twin: not run"
+        if twins and label in twin_ms:
+            t_plain = twin_ms[label]
+            plain_text = (f"twin {t_plain:.4f} ms (one call, "
+                          f"{'phase 3' if grid == '900x1440' else f'{TWIN_CROP}^2 crop'})")
+        elif twins:
+            shared = next((k for k, v in times.items() if v["grid"] == grid
+                           and v["azimuths"] == azimuths and v["plain_ms"] is not None), None)
+            if shared:  # the two fan kernels share one twin: timed once
+                t_plain, plain_reps = times[shared]["plain_ms"], times[shared]["plain_reps"]
+            else:
+                t_plain, plain_reps = slow_median_ms(plain, 100.0)
+            plain_text = f"twin {t_plain:.4f} ms (median of {plain_reps})"
+        work = sx_work(dem.shape, o, d, b)
         t_bound, bound_by = bound(*work)
-        times[kernel] = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound, bound_by=bound_by,
-                             library_ms=None)
-        print(f"[time] {kernel} global route, Sx 10 km {azimuths} {grid}: kernel {t_kernel:.4f} ms "
-              f"(median of {reps}), twin {t_plain:.4f} ms (median of {plain_reps}); bound "
-              f"{t_bound:.4f} ms ({bound_by}; {work[0]:.4g} ops, {work[1]:.4g} bytes), share of "
-              f"bound {t_bound / t_kernel:.4f}; library call: none on {smi_line}")
+        times[label] = dict(kernel=kernel, grid=grid, azimuths=azimuths, route=ran,
+                            ms=t_kernel, reps=reps, plain_ms=t_plain,
+                            plain_reps=plain_reps if twins and label not in twin_ms else 1,
+                            bound_ms=t_bound, bound_by=bound_by, library_ms=None)
+        print(f"[time] {label}, Sx 10 km ({len(o) if azimuths else 1} az, route {ran}): kernel "
+              f"{t_kernel:.4f} ms (median of {reps}), {plain_text}; bound {t_bound:.4f} ms "
+              f"({bound_by}; {work[0]:.4g} ops, {work[1]:.4g} bytes), share of bound "
+              f"{t_bound / t_kernel:.4f}; library call: none{crop_text} on {smi_line}")
     return times
+
+
+def tune_chunk_stage():
+    """The chunked route's stage size against the blocks that fit on an SM
+    (``sx_block.CHUNK_STAGES``: two stages per block, for 1, 2 and 3
+    blocks) and the stage the cost model picks (``chunk_plan`` without a
+    stage): ``sx_block`` at 10 and 20 km (45 degrees) at 8192x8192 and the
+    36-azimuth ``sx_fan`` at 10 km on 900x1440 and on a 4096x4096 crop, each
+    with its chunks and staged values per output (CUDA events, median of
+    5). Run on its own: ``python3 -c "import chip_smoke;
+    chip_smoke.tune_chunk_stage()"``."""
+    from topo_descriptors_tpu_torch.device import upload
+    from topo_descriptors_tpu_torch.host import (basodino_like_dem, sx_dedupe, sx_offsets,
+                                                 sx_sweep_dedupe, sx_sweep_offsets)
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+
+    _, smi_line = card()
+    build()
+    big = torch.from_numpy(basodino_like_dem(8192, 8192, seed=0).data).cuda()
+    grids = {"900x1440": torch.from_numpy(basodino_like_dem(projected=True).data).cuda(),
+             "4096x4096": big[:4096, :4096].contiguous()}
+    fo, fd, fb = sx_sweep_offsets(SWEEP_AZIMUTHS, 10_000.0, 30.0, 30.0)
+    fo, fd = sx_sweep_dedupe(fo, fd)
+    flat = sx_sweep.sweep_tables(fo, fd)
+    rays = flat[1][flat[3]]
+    fan = [(flat[0][k0:k1], flat[1][g0 : g1 + 1] - k0, flat[2][g0:g1])
+           for k0, k1, g0, g1 in zip(rays[:-1], rays[1:], flat[3][:-1], flat[3][1:])]
+    stages = {f"{n} per SM": stage for n, stage in sx_block.CHUNK_STAGES.items()}
+    for label, stage in {**stages, "model": None}.items():
+        for radius in (10_000.0, 20_000.0):
+            o, d, b = sx_offsets(45.0, radius, 30.0, 30.0)
+            o, d = sx_dedupe(o, d)
+            plan, n_chunks, stage_floats = sx_block.chunk_plan([sx_block.ray_groups(o, d)], stage)
+            recs = plan[4 : 4 + 8 * n_chunks].reshape(-1, 8)
+            staged = float((recs[:, 6] * recs[:, 7]).sum()) / TILE_OUTPUTS
+            ms = median_ms(lambda: sx_block.sx_block_chunked(big, o, d, b, 10.0,
+                                                             stage_bytes=stage), reps=5)
+            print(f"[tune] stage {label} ({4 * stage_floats} B): sx_block {radius / 1000:g} km az "
+                  f"45 8192x8192: {n_chunks} chunks, {staged:.1f} staged values per output "
+                  f"against {len(o)} rays, {ms:.4f} ms (median of 5) on {smi_line}")
+        plan, n_chunks, stage_floats = sx_block.chunk_plan(fan, stage)
+        for grid, dem in grids.items():
+            out = torch.empty((len(fo),) + tuple(dem.shape), dtype=torch.float32,
+                              device=dem.device)
+            plan_t = upload(plan, dem.device)
+
+            def run():
+                return sx_block.launch_chunked("sx_fan_chunked_forward", dem, plan_t, len(fo),
+                                               stage_floats, out, fb, 10.0, True)
+
+            check(run() == 0, f"sx_fan chunked launch failed at stage {label}")
+            ms = median_ms(run, reps=5)
+            print(f"[tune] stage {label} ({4 * stage_floats} B): sx_fan 36 az 10 km {grid}: "
+                  f"{n_chunks} chunks, {ms:.4f} ms (median of 5) on {smi_line}")
+
+
+def time_routes_alone():
+    """Phase 5's Sx route timings alone (kernels only), for the package that
+    comes first on ``sys.path``: so an earlier commit's package is timed
+    beside this one's in one run (``PERF.md`` section 6 says how)."""
+    from topo_descriptors_tpu_torch.host import basodino_like_dem
+
+    _, smi_line = card()
+    build()
+    grids = {"900x1440": torch.from_numpy(basodino_like_dem(projected=True).data).cuda(),
+             "8192x8192": torch.from_numpy(basodino_like_dem(8192, 8192, seed=0).data).cuda()}
+    times = time_sx_routes(grids, smi_line, twins=False)
+    print(json.dumps({label: {k: v for k, v in t.items() if k != "azimuths"}
+                      for label, t in times.items()}))
 
 
 def slow_median_ms(fn, slow_ms: float = 1000.0):
@@ -2407,6 +2647,21 @@ def run_profiling_batch(baso, raw_ds, dem_ds, ind_nans, dem, use_h5py, phase4_ou
     return launches
 
 
+def add_shares(entry: dict) -> None:
+    """Beside every ``ms{suffix}`` with a ``bound_ms{suffix}`` of ``entry``
+    and of the route dicts nested in it, ``share{suffix}``: the bound over
+    the measured time."""
+    for key in [k for k in entry if k.startswith("ms")]:
+        suffix = key[2:]
+        if isinstance(entry.get(f"bound_ms{suffix}"), float) and entry[key]:
+            entry[f"share{suffix}"] = entry[f"bound_ms{suffix}"] / entry[key]
+    for value in list(entry.values()):
+        if isinstance(value, dict):
+            for nested in value.values():
+                if isinstance(nested, dict):
+                    add_shares(nested)
+
+
 def main() -> int:
     name, smi_line = card()
     from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na
@@ -2429,13 +2684,19 @@ def main() -> int:
     # than the 2000 m halo (border 67)
     ragged = torch.from_numpy(basodino_like_dem(1000, 1337, seed=3).data).cuda()
     small = grids["900x1440"][:50, :61].contiguous()
+    twin_ms = {}  # phase 3's twin calls that phase 5 reports
     for grid, dem in {**grids, "1000x1337": ragged, "50x61": small}.items():
         for case in disk_cases(dem, grid):
             errs["disk_sat"] = max(errs["disk_sat"], check_disk(*case, grid))
         for case in sx_cases(grid):
             errs["sx_block"] = max(errs["sx_block"], check_sx(case[0], dem, *case[1:], grid))
+        if grid in ("900x1440", "1000x1337"):
+            check_chunked(dem, grid)
         for case in sweep_cases(grid):
-            for kernel, err in check_sweep(case[0], dem, *case[1:], grid).items():
+            case_errs, ms = check_sweep(case[0], dem, *case[1:], grid)
+            if (case[0], grid) == ("36az_r10000", "900x1440"):
+                twin_ms["sx_fan 36 az 900x1440"] = ms
+            for kernel, err in case_errs.items():
                 errs[kernel] = max(errs[kernel], err)
     routes = read_route_launches()
     print(f"[parity] done at {time.perf_counter() - t0:.1f} s; launches per route {routes}")
@@ -2487,13 +2748,17 @@ def main() -> int:
           f"ops.sx_sweep(method={other_method!r}) disagrees with the twin")
     check_sweep_drivers(dem_ds, main_out, other_out)
     check(np.isnan(main_out["call0/TPI_500M"].data[ind_nans]).all(), "NaN holes not reassigned")
+    km10_launches, km10_routes = run_10km_drivers(dem_ds, use_h5py)
     check_against_recipes(baso.data[:90, :144])
     print(f"[drivers] done at {time.perf_counter() - t0:.1f} s")
 
     times = time_kernels(grids, smi_line)
     sweep_times = time_sweeps(grids, smi_line)
     wide_times = time_wide(grids, smi_line)
-    global_times = time_global_routes("900x1440", grids["900x1440"], smi_line)
+    route_times = time_sx_routes(grids, smi_line, twin_ms)
+    for label, t in route_times.items():
+        want = "global" if t["kernel"] == "sx_sweep" else "chunked"
+        check(t["route"] == [want], f"{label}: route {t['route']}, not {want}")
     print(f"[time] done at {time.perf_counter() - t0:.1f} s")
     del grids
     slice3_launches, slice3_out = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
@@ -2529,6 +2794,9 @@ def main() -> int:
                                           for call, counts in per_call.items()}
         if kernel in slice3_launches:  # TerrainSuite.forward, phase 6
             entry["launches_suite"] = slice3_launches[kernel]
+        if kernel != "disk_sat":  # the 10 km drivers, phase 4
+            entry["launches_10km"] = km10_launches[kernel]
+            entry["launches_10km_routes"] = km10_routes[kernel]
         entry["launches_streamed"] = streamed_launches[kernel]  # phase 7
         entry["launches_sharded"] = sharded_launches[kernel]  # phase 8
         entry["launches_batch"] = batch_launches[kernel]  # phase 9
@@ -2545,8 +2813,12 @@ def main() -> int:
                     entry[f"{key}{suffix}"] = value
         if kernel == "disk_sat":  # the wide route, phase 5
             entry["wide"] = wide_times
-        else:  # the global route at 10 km, phase 5
-            entry["global"] = global_times[kernel]
+        else:  # the 10 km cases, phase 5: chunked (sx_block, sx_fan) or global (sx_sweep)
+            entry["chunked" if kernel != "sx_sweep" else "global"] = {
+                label: {k: t[k] for k in ("grid", "route", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+                for label, t in route_times.items() if t["kernel"] == kernel}
+        add_shares(entry)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

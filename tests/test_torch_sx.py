@@ -164,9 +164,9 @@ def test_halo_box_follows_the_signed_offsets(azimuth, radius):
 
 def test_route_is_chosen_by_the_halo_alone():
     """A 10 km halo at 45 degrees (a 334 x 334 box) does not fit in 227 KB
-    of shared memory and takes the global route; the same radius along an
+    of shared memory and takes the chunked route; the same radius along an
     axis, and every smaller one, fits."""
-    for azimuth, expected in ((45.0, "global"), (0.0, "tile")):
+    for azimuth, expected in ((45.0, "chunked"), (0.0, "tile")):
         offs, _, inv = sx_block.ray_groups(*_dedupe(azimuth, 10_000.0)[:2])
         box = sx_block.halo_box(offs)
         assert sx_block.route(box, len(offs), len(inv)) == expected
@@ -193,7 +193,7 @@ def test_ray_tables_are_uploaded_once_per_table():
 
 
 # (grid, azimuth, radius m): every side of the one-sided halo at 2000 m, a
-# ragged grid, a grid smaller than the 2000 m halo, and the global route
+# ragged grid, a grid smaller than the 2000 m halo, and the chunked route
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,azimuth,radius,route", [
     ((300, 410), 90.0, 2000.0, "tile"),
@@ -201,9 +201,9 @@ def test_ray_tables_are_uploaded_once_per_table():
     ((300, 410), 270.0, 2000.0, "tile"),
     ((257, 333), 0.0, 500.0, "tile"),
     ((50, 61), 225.0, 2000.0, "tile"),
-    ((400, 420), 45.0, 10_000.0, "global"),
+    ((400, 420), 45.0, 10_000.0, "chunked"),
 ], ids=["az90_r2000", "az180_r2000", "az270_r2000", "ragged_r500", "grid_below_halo",
-        "global_r10000"])
+        "chunked_r10000"])
 def test_sx_routes_bit_equal_to_the_sweep_on_cuda(shape, azimuth, radius, route):
     """Both routes against the twin, and bit for bit against the sweep
     kernel's plane of the same azimuth (the same per-pixel operations)."""

@@ -181,12 +181,13 @@ def test_sweep_kernel_matches_twin_on_cuda(kernel, name, dem_tiny):
 # 36-azimuth fans on 30 m (BASELINE.json configs[3] and the 8192^2 case):
 # radius -> (rays, distance groups, largest azimuth's staged wedge and ray
 # table in KiB, union box of the fan, its staged tile in KiB, all tables in
-# KiB, route of both kernels)
+# KiB, routes of sx_sweep and sx_fan)
 FAN_SIZES = {
-    200.0: (296, 284, 9.7, (-6, 6, -6, 6), 13.1, 4.7, "tile"),
-    500.0: (1328, 1288, 13.3, (-16, 16, -16, 16), 24.0, 20.6, "tile"),
-    2000.0: (15136, 14076, 40.7, (-66, 66, -66, 66), 125.6, 228.4, "tile"),
-    10_000.0: (145136, 137764, 393.5, (-332, 332, -332, 332), 1979.2, 2210.3, "global"),
+    200.0: (296, 284, 9.7, (-6, 6, -6, 6), 13.1, 4.7, ("tile", "tile")),
+    500.0: (1328, 1288, 13.3, (-16, 16, -16, 16), 24.0, 20.6, ("tile", "tile")),
+    2000.0: (15136, 14076, 40.7, (-66, 66, -66, 66), 125.6, 228.4, ("tile", "tile")),
+    10_000.0: (145136, 137764, 393.5, (-332, 332, -332, 332), 1979.2, 2210.3,
+               ("global", "chunked")),
 }
 AZIMUTHS36 = tuple(range(0, 360, 10))
 
@@ -202,8 +203,10 @@ def test_fan_boxes_groups_and_routes(radius, dy):
     """The box, group and route helpers on the 36-azimuth fans: the sizes
     of the table above, the north-up grid's boxes mirrored in y, the fan
     grouped so that four of its blocks fit on an SM (one group up to
-    500 m), and the 10 km fan on the global route of both kernels."""
-    rays, groups, wedge_kib, union, union_kib, tables_kib, route = FAN_SIZES[radius]
+    500 m), and the 10 km fan on the sweep's global route and the fan's
+    chunked route, whose plan only that route builds."""
+    rays, groups, wedge_kib, union, union_kib, tables_kib, routes = FAN_SIZES[radius]
+    route = routes[0]
     o, d, _ = _fan36(radius, dy)
     flat = sx_sweep.sweep_tables(o, d)
     assert (len(flat[0]), len(flat[2])) == (rays, groups)
@@ -221,7 +224,9 @@ def test_fan_boxes_groups_and_routes(radius, dy):
     if dy < 0:
         south = sx_sweep.fan_tables(*_fan36(radius)[:2], "cpu").boxes
         np.testing.assert_array_equal(t.boxes, south[:, [1, 0, 2, 3]] * [-1, -1, 1, 1])
-    assert sx_sweep.route(t.sweep_smem) == sx_sweep.route(t.fan_smem) == route
+    assert (sx_sweep.route("sx_sweep", t.sweep_smem),
+            sx_sweep.route("sx_fan", t.fan_smem)) == routes
+    assert (t.plan is not None) == (routes[1] == "chunked")
     assert [a for g in t.groups for a in range(*g)] == list(range(36))
     if route == "tile":
         assert 4 * (t.fan_smem + 1024) <= _build.SMEM_PER_SM  # four fan blocks per SM
@@ -310,7 +315,8 @@ def test_sweep_dedupe_runs_once_per_table(dem_tiny):
 # (grid, fan kwargs, zero_border, route): a grid that is no tile multiple,
 # north-up and without the zero border; a grid smaller than the 2000 m halo;
 # the radius_min and distance-0 fans; a 10 km fan whose 45-degree box does
-# not fit in shared memory
+# not fit in shared memory ("global": sx_sweep's global route, sx_fan's
+# chunked route)
 ROUTE_CASES = {
     "ragged_r2000_northup_nozero": ((1000, 1337), dict(azimuths=AZIMUTHS36, radius=2000.0,
                                                        dy=-30.0), False, "tile"),
@@ -335,6 +341,8 @@ def test_sweep_routes_bit_equal_to_sx_block_on_cuda(kernel, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     shape, kw, zero_border, route = ROUTE_CASES[case]
+    if route == "global" and kernel == "sx_fan":
+        route = "chunked"
     kw = dict(kw)
     o, d, b = kernels.sx_sweep_offsets(dx=30.0, dy=kw.pop("dy", 30.0), **kw)
     o, d = kernels.sx_sweep_dedupe(o, d)

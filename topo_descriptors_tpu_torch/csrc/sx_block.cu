@@ -31,13 +31,22 @@
 //     broadcasts). Each thread computes 8 outputs (4 rows x 2 columns 32
 //     apart), so one table read feeds 8 fmaxes and every warp load is 32
 //     consecutive words.
-//   * GLOBAL (the halo does not fit: large radii at oblique azimuths). One
-//     thread per output pixel in 64 x 4 blocks reads through L1/L2 with
-//     sx_max_ratio's bounds checks.
+//   * CHUNKED (the halo does not fit: 10 km at an oblique azimuth, 20 km at
+//     any). The same tile and outputs per thread, but the rays stream
+//     through two shared-memory stages, one distance band (a chunk of the
+//     host plan, ops/cuda/sx_block.py::chunk_plan) at a time, each staged
+//     with its own small box while the previous one is summed; the running
+//     maxima stay in registers across the chunks (sx_chunked.cuh). The
+//     plan's stage is sized for 1, 2 or 3 blocks per SM by the host's cost
+//     model: more blocks hide the shared loads' latency better (1.86x at
+//     three), smaller stages cut wide fans into more chunks. At 10 km on
+//     8192^2, 11 chunks of 38.4 KB stage ~45 values per output against 3381
+//     ray reads.
 // Both routes run sx_max_ratio's operations in its order (sx_rays.cuh), so
 // their planes are bit-equal to each other and to sx_sweep.cu's. The ray
 // tables are runtime data, so one build serves every radius and azimuth.
 
+#include "sx_chunked.cuh"
 #include "sx_rays.cuh"
 #include "tile_stage.cuh"
 
@@ -51,27 +60,6 @@ constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
 constexpr int kCols = kTileW / kThreadsX;  // 2
 constexpr int kRows = kTileH / kThreadsY;  // 4
-
-__global__ void sx_block_kernel(const float* __restrict__ dem,
-                                const int* __restrict__ offsets,
-                                const int* __restrict__ group_ptr,
-                                const float* __restrict__ inv, int n_groups,
-                                float* __restrict__ out, int h, int w,
-                                int border, float height, int zero_border) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w) return;
-  for (int y = blockIdx.y * blockDim.y + threadIdx.y; y < h;
-       y += gridDim.y * blockDim.y) {
-    const int64_t idx = static_cast<int64_t>(y) * w + x;
-    if (zero_border && !sx_interior(y, x, h, w, border)) {
-      out[idx] = 0.0f;
-      continue;
-    }
-    const float base = dem[idx] + height;
-    out[idx] = sx_degrees(sx_max_ratio(dem, offsets, group_ptr, inv, 0,
-                                       n_groups, h, w, y, x, base));
-  }
-}
 
 // Tile route. Block (tx, ty) computes outputs y0 .. y0 + kTileH - 1,
 // x0 .. x0 + kTileW - 1. Staged row i, column j holds dem[y0 + oy0 + i,
@@ -148,22 +136,43 @@ sx_block_tile(const float* __restrict__ dem, const int* __restrict__ offsets,
   }
 }
 
+// Chunked route. Block (tx, ty) computes the same tile as sx_block_tile,
+// from the plan of one azimuth (sx_chunked.cuh) streamed through two stages
+// of stage_floats floats.
+__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+sx_block_chunked(const float* __restrict__ dem, const int* __restrict__ plan,
+                 int stage_floats, float* __restrict__ out, int h, int w,
+                 int border, float height, int zero_border, int tiles_y) {
+  extern __shared__ __align__(16) float smem[];
+  const sx_chunked::Chunk* chunks = sx_chunked::chunks_of(plan, 1);
+  const int c0 = __ldg(&plan[0]);
+  const int c1 = __ldg(&plan[1]);
+  const int x0 = blockIdx.x * kTileW;
+  for (int ty = blockIdx.y; ty < tiles_y; ty += gridDim.y) {
+    __syncthreads();  // the previous tile is done with both stages
+    sx_chunked::chunked_tile(dem, plan, chunks, c0, c1, stage_floats, smem, out,
+                             h, w, ty * kTileH, x0, border, height, zero_border);
+  }
+}
+
 }  // namespace
 
-// Global route. Returns cudaGetLastError().
-extern "C" int sx_block_forward(const float* dem, const int* offsets,
-                                const int* group_ptr, const float* inv,
-                                int n_groups, float* out, int h, int w,
-                                int border, float height, int zero_border,
-                                cudaStream_t stream) {
-  if (h > 0 && w > 0) {
-    const dim3 threads(64, 4);
-    const int gy = (h + threads.y - 1) / threads.y;
-    const dim3 grid((w + threads.x - 1) / threads.x, gy < 65535 ? gy : 65535);
-    sx_block_kernel<<<grid, threads, 0, stream>>>(dem, offsets, group_ptr, inv,
-                                                  n_groups, out, h, w, border,
-                                                  height, zero_border);
-  }
+// Chunked route, with the plan of one azimuth (n_az = 1) and its stage size
+// from the wrapper (ops/cuda/sx_block.py::chunk_plan). Returns
+// cudaGetLastError(), or the error of raising the shared-memory limit.
+extern "C" int sx_block_chunked_forward(const float* dem, const int* plan,
+                                        int n_az, int stage_floats, float* out,
+                                        int h, int w, int border, float height,
+                                        int zero_border, cudaStream_t stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if (n_az != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = sx_chunked::set_stage_smem(sx_block_chunked, stage_floats);
+  if (err != 0) return err;
+  const int tiles_y = (h + kTileH - 1) / kTileH;
+  const dim3 grid((w + kTileW - 1) / kTileW, tiles_y < 65535 ? tiles_y : 65535);
+  const int smem_bytes = 2 * stage_floats * static_cast<int>(sizeof(float));
+  sx_block_chunked<<<grid, dim3(kThreadsX, kThreadsY), smem_bytes, stream>>>(
+      dem, plan, stage_floats, out, h, w, border, height, zero_border, tiles_y);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,8 @@
 //   sx_sweep_pallas (sx_block.py:566-574): one azimuth per block.
 // * sx_fan replaces _sx_fan_kernel (one halo window read once for every
 //   azimuth of a group) with the epilogue of sx_fan_pallas
-//   (sx_block.py:446-455): one group of azimuths per block.
+//   (sx_block.py:446-455): one group of azimuths per block (tile route), or
+//   one azimuth per block (chunked route).
 //
 // What bounds them on the H100: instruction issue and shared-memory loads,
 // not device memory. Per (output, ray) the inner loop spends one shared load
@@ -53,16 +54,25 @@
 //     Both tile kernels are held to 64 registers, so that four blocks of
 //     256 threads fit on an SM; with more registers and fewer blocks both
 //     measured slower.
-//   * GLOBAL (a box above 227 KB, e.g. the 10 km fan): the first design,
-//     kept as it was. sx_sweep_kernel has one thread per (pixel, azimuth),
-//     the azimuth on the grid's z axis; sx_fan_kernel one thread per pixel
-//     looping over the azimuths. Both read every ray through L1/L2 with
-//     sx_max_ratio's bounds checks.
+//   * GLOBAL (sx_sweep only, a box above 227 KB, e.g. the 10 km fan): the
+//     first design, kept as it was. sx_sweep_kernel has one thread per
+//     (pixel, azimuth), the azimuth on the grid's z axis, reading every ray
+//     through L1/L2 with sx_max_ratio's bounds checks.
+//   * CHUNKED (sx_fan, a box above 227 KB): block = (output tile, azimuth),
+//     the azimuth fastest as in sx_sweep_tile, so a tile's blocks find its
+//     DEM in L2. Each block runs sx_block's chunked route on its azimuth's
+//     plan (sx_chunked.cuh): the rays stream through two shared-memory
+//     stages one distance band at a time, the running maxima kept in
+//     registers. A block per group of azimuths could stage one union box per
+//     band for the group, but staging is ~1% of the work at 10 km (~45
+//     staged values per output and azimuth against 3381-4420 ray reads),
+//     so it could save little, at the price of a group's accumulators.
 // Output indices are 64-bit (36 x 8192^2 > 2^31), and every grid loops, so
 // any size works. The TPU kernels' Mosaic workarounds (the (column, oy mod
 // 8) CSR, the FAN_RAY_BUDGET groups, (8, 128) window rounding,
 // double-buffered DMA) have no counterpart here.
 
+#include "sx_chunked.cuh"
 #include "sx_rays.cuh"
 #include "tile_stage.cuh"
 
@@ -105,32 +115,6 @@ __global__ void sx_sweep_kernel(const float* __restrict__ dem,
       const float base = dem[idx] + height;
       out_a[idx] = sx_degrees(sx_max_ratio(dem, offsets, group_ptr, inv, g0,
                                            g1, h, w, y, x, base));
-    }
-  }
-}
-
-__global__ void sx_fan_kernel(const float* __restrict__ dem,
-                              const int* __restrict__ offsets,
-                              const int* __restrict__ group_ptr,
-                              const float* __restrict__ inv,
-                              const int* __restrict__ az_ptr, int n_az,
-                              float* __restrict__ out, int h, int w,
-                              int border, float height, int zero_border) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w) return;
-  const int64_t plane = static_cast<int64_t>(h) * w;
-  for (int y = blockIdx.y * blockDim.y + threadIdx.y; y < h;
-       y += gridDim.y * blockDim.y) {
-    const int64_t idx = static_cast<int64_t>(y) * w + x;
-    if (zero_border && !sx_interior(y, x, h, w, border)) {
-      for (int a = 0; a < n_az; ++a) out[a * plane + idx] = 0.0f;
-      continue;
-    }
-    const float base = dem[idx] + height;
-    for (int a = 0; a < n_az; ++a) {
-      out[a * plane + idx] =
-          sx_degrees(sx_max_ratio(dem, offsets, group_ptr, inv, az_ptr[a],
-                                  az_ptr[a + 1], h, w, y, x, base));
     }
   }
 }
@@ -299,6 +283,28 @@ sx_fan_tile(const float* __restrict__ dem, const int* __restrict__ soff,
   }
 }
 
+// Fan chunked route. Block index b = tile * n_az + a: azimuth a's plane of
+// the tile, from azimuth a's chunks of the plan (sx_chunked.cuh).
+__global__ void __launch_bounds__(kThreads)
+sx_fan_chunked(const float* __restrict__ dem, const int* __restrict__ plan,
+               int n_az, int stage_floats, float* __restrict__ out, int h,
+               int w, int border, float height, int zero_border, int tiles_x,
+               int64_t n_blocks) {
+  extern __shared__ __align__(16) float smem[];
+  const sx_chunked::Chunk* chunks = sx_chunked::chunks_of(plan, n_az);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const int a = static_cast<int>(b % n_az);
+    const int64_t t = b / n_az;
+    __syncthreads();  // the previous block is done with both stages
+    sx_chunked::chunked_tile(dem, plan, chunks, __ldg(&plan[a]), __ldg(&plan[a + 1]),
+                             stage_floats, smem, out + a * plane, h, w,
+                             static_cast<int>(t / tiles_x) * kTileH,
+                             static_cast<int>(t % tiles_x) * kTileW, border,
+                             height, zero_border);
+  }
+}
+
 dim3 pixel_grid(int h, int w, dim3 threads) {
   const int gy = (h + threads.y - 1) / threads.y;
   return dim3((w + threads.x - 1) / threads.x, gy < 65535 ? gy : 65535);
@@ -323,7 +329,7 @@ int launch_tiles(Kernel kernel, int64_t n_blocks, int smem_bytes,
 
 }  // namespace
 
-// Global routes. Each returns cudaGetLastError().
+// Global route of sx_sweep. Returns cudaGetLastError().
 extern "C" int sx_sweep_forward(const float* dem, const int* offsets,
                                 const int* group_ptr, const float* inv,
                                 const int* az_ptr, int n_az, float* out, int h,
@@ -334,20 +340,6 @@ extern "C" int sx_sweep_forward(const float* dem, const int* offsets,
     dim3 grid = pixel_grid(h, w, threads);
     grid.z = n_az < 65535 ? n_az : 65535;
     sx_sweep_kernel<<<grid, threads, 0, stream>>>(
-        dem, offsets, group_ptr, inv, az_ptr, n_az, out, h, w, border, height,
-        zero_border);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int sx_fan_forward(const float* dem, const int* offsets,
-                              const int* group_ptr, const float* inv,
-                              const int* az_ptr, int n_az, float* out, int h,
-                              int w, int border, float height, int zero_border,
-                              cudaStream_t stream) {
-  if (h > 0 && w > 0 && n_az > 0) {
-    const dim3 threads(64, 4);
-    sx_fan_kernel<<<pixel_grid(h, w, threads), threads, 0, stream>>>(
         dem, offsets, group_ptr, inv, az_ptr, n_az, out, h, w, border, height,
         zero_border);
   }
@@ -390,4 +382,26 @@ extern "C" int sx_fan_tile_forward(const float* dem, const int* soff,
   return launch_tiles(sx_fan_tile, n_blocks, smem_bytes, stream, dem, soff,
                       group_ptr, inv, az_ptr, fan, n_fan, out, h, w, border,
                       height, zero_border, tiles_x, n_blocks, vec, table_words);
+}
+
+// Chunked route of sx_fan, with the plan of its n_az azimuths and their
+// stage size from the wrapper (ops/cuda/sx_block.py::chunk_plan). Returns
+// cudaGetLastError(), or the error of raising the shared-memory limit.
+extern "C" int sx_fan_chunked_forward(const float* dem, const int* plan,
+                                      int n_az, int stage_floats, float* out,
+                                      int h, int w, int border, float height,
+                                      int zero_border, cudaStream_t stream) {
+  if (h <= 0 || w <= 0 || n_az <= 0) return 0;
+  const int err = sx_chunked::set_stage_smem(sx_fan_chunked, stage_floats);
+  if (err != 0) return err;
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const int64_t n_blocks =
+      static_cast<int64_t>((h + kTileH - 1) / kTileH) * tiles_x * n_az;
+  const unsigned grid =
+      static_cast<unsigned>(n_blocks < kMaxGrid ? n_blocks : kMaxGrid);
+  const int smem_bytes = 2 * stage_floats * static_cast<int>(sizeof(float));
+  sx_fan_chunked<<<grid, dim3(kThreadsX, kThreadsY), smem_bytes, stream>>>(
+      dem, plan, n_az, stage_floats, out, h, w, border, height, zero_border,
+      tiles_x, n_blocks);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,16 +1,22 @@
 // Staging field values into shared memory, shared by the tiled kernels
-// (disk_sat.cu, sx_block.cu, sx_sweep.cu). Two ways, each the faster one on the H100
-// for the kernel that uses it:
+// (disk_sat.cu, sx_block.cu, sx_sweep.cu, sx_chunked.cuh). Three ways, each
+// the faster one on the H100 for the kernel that uses it, or the one its
+// double buffer needs:
 //   * cp.async (disk_sat.cu): one 4-byte copy per value, issued by every
 //     thread without waiting, then one wait: the whole tile's loads are in
 //     flight together (the fused route); or 16-byte copies grouped per
 //     stage of a double buffer (the wide route);
 //   * stage_row (sx_block.cu, sx_sweep.cu): one warp per row, one 16-byte load per lane
-//     where the row is aligned.
+//     where the row is aligned;
+//   * stage_box_async (sx_chunked.cuh): a box for one stage of a double
+//     buffer, 4-byte cp.async for the cells inside the field and plain
+//     stores of a fill (NaN) for the others, since cp.async's own fill is
+//     zero.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // dst = *src when `valid`, else 0 (cp.async's zero fill: no byte is read
 // from `src`, which must still be a device address).
@@ -79,6 +85,37 @@ static __device__ __forceinline__ void stage_row(const float* __restrict__ src,
     for (int t = 0; t < 4; ++t) {
       const int d = q + t - c0;
       if (d >= 0 && d < n) dst[d] = v[t];
+    }
+  }
+}
+
+// Issues (does not wait for) the copies of the sh x sw box of the h x w
+// field `src` whose first cell is (r0, c0) into dst (row stride sw): one
+// 4-byte cp.async per cell inside the field, and `fill` stored into the
+// others. Called by every thread of a block of n_threads (a multiple of
+// 32), thread `tid`: warps take rows, lanes consecutive columns, so a warp
+// reads 128 contiguous bytes at a time. The copies are grouped with the
+// caller's cp_async_commit(); the fill stores are seen after its
+// __syncthreads().
+static __device__ __forceinline__ void stage_box_async(
+    const float* __restrict__ src, int h, int w, int r0, int c0, int sh,
+    int sw, float* dst, int tid, int n_threads, float fill) {
+  const int lane = tid & 31;
+  for (int i = tid >> 5; i < sh; i += n_threads >> 5) {
+    const int y = r0 + i;
+    float* d = dst + i * sw;
+    if (y < 0 || y >= h) {
+      for (int j = lane; j < sw; j += 32) d[j] = fill;
+      continue;
+    }
+    const float* row = src + static_cast<int64_t>(y) * w;
+    for (int j = lane; j < sw; j += 32) {
+      const int x = c0 + j;
+      if (x >= 0 && x < w) {
+        cp_async_f32(d + j, row + x, true);
+      } else {
+        d[j] = fill;
+      }
     }
   }
 }

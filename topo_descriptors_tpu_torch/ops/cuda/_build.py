@@ -50,10 +50,10 @@ _SIGNATURES = {
     # x, carry, out, table, n_groups, table_len, n_fields, h, w, ly, lx, hp,
     # wq, kh, kw, h_out, w_out, smem_bytes, stream
     "disk_sat_fused_forward": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
-    # dem, offsets, group_ptr, inv, n_groups, out, h, w, border, height,
-    # zero_border, stream
-    "sx_block_forward": (_P, _P, _P, _P, _I, _P, _I, _I, _I,
-                         ctypes.c_float, _I, _P),
+    # dem, plan, n_az, stage_floats, out, h, w, border, height, zero_border,
+    # stream
+    "sx_block_chunked_forward": (_P, _P, _I, _I, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    "sx_fan_chunked_forward": (_P, _P, _I, _I, _P, _I, _I, _I, ctypes.c_float, _I, _P),
     # dem, offsets, group_ptr, inv, n_rays, n_groups, out, h, w, oy0, ox0,
     # sh, sw, border, height, zero_border, smem_bytes, vec, stream
     "sx_block_tile_forward": (_P, _P, _P, _P, _I, _I, _P) + (_I,) * 7
@@ -62,8 +62,6 @@ _SIGNATURES = {
     # zero_border, stream
     "sx_sweep_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                          ctypes.c_float, _I, _P),
-    "sx_fan_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                       ctypes.c_float, _I, _P),
     # dem, offsets, group_ptr, inv, az_ptr, boxes, n_az, out, h, w, border,
     # height, zero_border, smem_bytes, vec, stream
     "sx_sweep_tile_forward": (_P,) * 6 + (_I, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P),

@@ -4,17 +4,20 @@ Replaces ``topo_descriptors_tpu/ops/pallas/sx_block.py::_sx_kernel`` with
 the epilogue ``sx_pallas`` runs after it. The CUDA kernels are in
 ``csrc/sx_block.cu``; its header says what bounds them on the H100 (load
 instructions: K ray reads per pixel) and what the two routes do about
-that: ``"tile"`` stages the halo its rays reach in shared memory,
-``"global"`` (halos that do not fit) reads through L1/L2. :func:`route`
-chooses between them from the halo's bytes and the shared-memory limit
-alone. :func:`sx_block_plain` is the same function in plain PyTorch — the
+that: ``"tile"`` stages the halo its rays reach in shared memory;
+``"chunked"`` (halos that do not fit) streams it through two
+shared-memory stages, one band of distance groups at a time, from the
+host plan :func:`chunk_plan` (the counterpart of the TPU kernel's
+``CHUNK_RAYS`` chunks of whole distance groups). :func:`route` chooses
+between them from the halo's bytes and the shared-memory limit alone.
+:func:`sx_block_plain` is the same function in plain PyTorch — the
 transcription of the XLA scan in ``topo_descriptors_tpu/ops/sx.py``: a
 NaN-padded DEM and one ``torch.fmax`` pass per ray offset.
 
 :func:`sx_block` routes by the tensor: CPU tensors take the plain twin,
 CUDA tensors the kernel, anything else raises. ``LAUNCHES`` counts the
 kernel's launches and ``ROUTE_LAUNCHES`` splits them by route; ``TABLES``
-keeps the ray tables on their device.
+keeps the ray tables and chunk plans on their device.
 """
 
 from __future__ import annotations
@@ -27,11 +30,25 @@ from topo_descriptors_tpu_torch.device import TableCache, on_cuda, upload
 from topo_descriptors_tpu_torch.ops.cuda import _build
 
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"tile": 0, "global": 0}
+ROUTE_LAUNCHES = {"tile": 0, "chunked": 0}
 TABLES = TableCache()
 
-# csrc/sx_block.cu's output tile (kTileH x kTileW)
+# csrc/sx_block.cu's output tile (kTileH x kTileW), both routes
 TILE_H, TILE_W = 32, 64
+# the chunked route's stage (csrc/sx_chunked.cuh) for n blocks per SM: two
+# stages per block, and the 1 KB each block takes
+CHUNK_STAGES = {n: min(_build.SMEM_PER_BLOCK, _build.SMEM_PER_SM // n - 1024) // 2 // 16 * 16
+                for n in (1, 2, 3)}
+# the chunked route's speed with n blocks per SM against one, and the cost
+# of a chunk (its barriers and staging) in ray reads per output: measured
+# by chip_smoke.py::tune_chunk_stage on an NVIDIA H100 80GB HBM3 at 700 W
+# (10 km at 45 degrees on 8192^2: 96.5, 58.5 and 51.9 ms; at 20 km two
+# blocks per SM cut the plan into 154 chunks)
+STAGE_SPEED = {1: 1.0, 2: 1.65, 3: 1.86}
+CHUNK_COST_RAYS = 22
+# a chunk record's flags: its first segment goes on with the group the
+# previous chunk left open; its last segment's group goes on in the next
+CARRY_IN, CARRY_OUT = 1, 2
 
 
 def _inv_distances(distances) -> np.ndarray:
@@ -69,11 +86,11 @@ def _epilogue(max_ratio, border, zero_border):
     return torch.where(interior, sx_deg, 0.0)
 
 
-def sx_block_plain(
-    dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
-    zero_border: bool = True,
-) -> torch.Tensor:
-    """Sx in degrees from a deduplicated ray table, one fmax pass per ray."""
+def max_ratio_plain(dem: torch.Tensor, offsets, distances, border: int,
+                    height: float = 10.0) -> torch.Tensor:
+    """max over rays k of (dem[p + o_k] - dem[p] - height) / d_k, NaN
+    dropped, -inf where no candidate is valid: the plane the kernels feed
+    their atan epilogue, one fmax pass per ray."""
     h, w = dem.shape
     pad = int(border)
     padded = F.pad(dem, (pad, pad, pad, pad), value=float("nan"))
@@ -83,7 +100,17 @@ def sx_block_plain(
     for k, (oy, ox) in enumerate(np.asarray(offsets) + pad):
         shifted = padded[oy : oy + h, ox : ox + w]
         max_ratio = torch.fmax(max_ratio, (shifted - base) * invs[k])
-    return _epilogue(max_ratio, pad, zero_border)
+    return max_ratio
+
+
+def sx_block_plain(
+    dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
+    zero_border: bool = True,
+) -> torch.Tensor:
+    """Sx in degrees from a deduplicated ray table: :func:`max_ratio_plain`
+    and the atan epilogue."""
+    return _epilogue(max_ratio_plain(dem, offsets, distances, border, height), int(border),
+                     zero_border)
 
 
 def check_dem(dem: torch.Tensor, kernel: str) -> None:
@@ -118,8 +145,124 @@ def tile_smem_bytes(box, n_rays: int, n_groups: int) -> int:
 
 def route(box, n_rays: int, n_groups: int) -> str:
     """``"tile"`` when the halo tile fits in shared memory, else
-    ``"global"``; the grid's size plays no part."""
-    return "tile" if tile_smem_bytes(box, n_rays, n_groups) <= _build.SMEM_PER_BLOCK else "global"
+    ``"chunked"``; the grid's size plays no part."""
+    return "tile" if tile_smem_bytes(box, n_rays, n_groups) <= _build.SMEM_PER_BLOCK else "chunked"
+
+
+def _table_words(n_rays, n_segments):
+    """Words of a chunk's table in its stage: its rays' offsets, segment
+    pointers and reciprocal distances, padded to 16 bytes (the layout of
+    the tile route's table)."""
+    return -(-(n_rays + 2 * n_segments + 1) // 4) * 4
+
+
+def chunk_bounds(offs, ptr, stage_bytes: int) -> list:
+    """``[(k0, k1), ...]``: one azimuth's rays of :func:`ray_groups`, in
+    order, cut into consecutive runs, each as long as its stage (the run's
+    table and the output tile grown by the run's :func:`halo_box`) stays
+    within ``stage_bytes``. The groups go by distance, so a run is one band
+    of the wedge and its box is small. A run may end inside a group (the
+    kernel then carries that group's running max into the next run), so any
+    fan has a plan as long as one ray's stage fits."""
+    offs = np.asarray(offs, np.int64).reshape(-1, 2)
+    group = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))  # each ray's group
+    bounds, k0, window = [], 0, 256
+    while k0 < len(offs):
+        while True:  # a window of rays long enough to hold the chunk
+            rest = offs[k0 : k0 + window]
+            lo = np.minimum.accumulate(rest, axis=0)
+            hi = np.maximum.accumulate(rest, axis=0)
+            words = (_table_words(np.arange(1, len(rest) + 1),
+                                  group[k0 : k0 + window] - group[k0] + 1)
+                     + (TILE_H + hi[:, 0] - lo[:, 0]) * (TILE_W + hi[:, 1] - lo[:, 1]))
+            n = int(np.count_nonzero(4 * words <= stage_bytes))  # words only grow: a prefix
+            if n < len(rest) or k0 + window >= len(offs):
+                break
+            window *= 4
+        if n == 0:
+            raise ValueError(f"a {stage_bytes}-byte stage holds no single ray's box")
+        bounds.append((k0, k0 + n))
+        k0 += n
+    return bounds
+
+
+def chunk_plan(tables, stage_bytes: int = None, max_blocks: int = None):
+    """The chunked route's plan for one or more azimuths, each given as
+    its :func:`ray_groups` tables ``(offsets, group_ptr, inv)``, with
+    stages of ``stage_bytes``; or, with None, the plan of the stage of
+    ``CHUNK_STAGES`` that the cost model finds cheapest: a smaller stage
+    fits more blocks on an SM, but cuts a wide fan into many small chunks.
+    The model's cost of a plan is its work per output in ray reads (each
+    ray, each staged value, ``CHUNK_COST_RAYS`` per chunk) over
+    ``STAGE_SPEED`` of its blocks per SM, of which the launch fills at most
+    ``max_blocks`` (None: as many as fit).
+
+    Returns ``(plan int32, n_chunks, stage_floats)``. Layout (words):
+    ``n_az + 1`` chunk pointers (azimuth ``a`` owns chunks ``plan[a] ..
+    plan[a + 1] - 1``), padded to 16 bytes; per chunk two int4 records
+    ``(table word, rays, segments, flags), (oy0, ox0, sh, sw)``; then each
+    chunk's table, copied word for word into its stage: its rays as
+    offsets into its box (staged row ``i``, column ``j`` is
+    ``dem[y0 + oy0 + i, x0 + ox0 + j]`` for the output tile at ``(y0,
+    x0)``, ``sh x sw``), its segment pointers (the parts of the groups it
+    meets, rebased to the chunk) and their reciprocal distances.
+    ``stage_floats`` is the largest chunk's table and box, padded to 16
+    bytes."""
+    if stage_bytes is not None:
+        return _chunk_plan(tables, stage_bytes)[:3]
+    plans = [(_chunk_plan(tables, stage), min(n, max_blocks or n))
+             for n, stage in CHUNK_STAGES.items()]
+    (plan, n_chunks, stage_floats, _), _ = min(plans, key=lambda p: p[0][3] / STAGE_SPEED[p[1]])
+    return plan, n_chunks, stage_floats
+
+
+def busy_blocks_per_sm(shape, border, zero_border, n_sms: int) -> int:
+    """Blocks per SM that the chunked route's launch on an (H, W) grid can
+    keep busy, up to the most ``CHUNK_STAGES`` offers: its tiles that read
+    rays (with the zero border, the tiles that meet the interior; the
+    others only write zeros) over the SMs."""
+    h, w = shape
+    y0 = np.arange(-(-h // TILE_H)) * TILE_H
+    x0 = np.arange(-(-w // TILE_W)) * TILE_W
+    if zero_border:
+        y0 = y0[(y0 + TILE_H > border) & (y0 < h - border)]
+        x0 = x0[(x0 + TILE_W > border) & (x0 < w - border)]
+    return int(min(max(-(-len(y0) * len(x0) // n_sms), 1), max(CHUNK_STAGES)))
+
+
+def _chunk_plan(tables, stage_bytes: int):
+    """:func:`chunk_plan` with stages of ``stage_bytes``, and the plan's
+    work per output in ray reads."""
+    n_az = len(tables)
+    head = -(-(n_az + 1) // 4) * 4
+    az_chunk, records, parts = [0], [], []
+    for offs, ptr, inv in tables:
+        offs = np.asarray(offs, np.int64).reshape(-1, 2)
+        ptr = np.asarray(ptr, np.int64)
+        inv_bits = np.asarray(inv, np.float32).view(np.int32)
+        for k0, k1 in chunk_bounds(offs, ptr, stage_bytes):
+            g0 = int(np.searchsorted(ptr, k0, side="right")) - 1  # the group of ray k0
+            g1 = int(np.searchsorted(ptr, k1 - 1, side="right"))  # past the group of ray k1 - 1
+            oy0, oy1, ox0, ox1 = halo_box(offs[k0:k1])
+            sh, sw = TILE_H + oy1 - oy0, TILE_W + ox1 - ox0
+            n, n_seg = k1 - k0, g1 - g0
+            table = np.zeros(_table_words(n, n_seg), np.int32)
+            table[:n] = (offs[k0:k1, 0] - oy0) * sw + (offs[k0:k1, 1] - ox0)
+            table[n : n + n_seg + 1] = np.clip(ptr[g0 : g1 + 1], k0, k1) - k0
+            table[n + n_seg + 1 : n + 2 * n_seg + 1] = inv_bits[g0:g1]
+            flags = CARRY_IN * int(ptr[g0] < k0) | CARRY_OUT * int(ptr[g1] > k1)
+            records.append([0, n, n_seg, flags, oy0, ox0, sh, sw])
+            parts.append(table)
+        az_chunk.append(len(records))
+    word = head + 8 * len(records)
+    for rec, table in zip(records, parts):
+        rec[0] = word
+        word += len(table)
+    stage = max((len(t) + r[6] * r[7] for r, t in zip(records, parts)), default=0)
+    plan = np.concatenate([np.asarray(az_chunk + [0] * (head - n_az - 1), np.int32),
+                           np.asarray(records, np.int32).reshape(-1), *parts]).astype(np.int32)
+    reads = sum(r[1] + r[6] * r[7] / (TILE_H * TILE_W) + CHUNK_COST_RAYS for r in records)
+    return plan, len(records), -(-stage // 4) * 4, reads
 
 
 def device_tables(offsets, distances, border, device):
@@ -138,6 +281,62 @@ def device_tables(offsets, distances, border, device):
     return TABLES.get(key, build)
 
 
+def device_plan(offsets, distances, border, device, stage_bytes: int = None,
+                max_blocks: int = None):
+    """``(plan on device, n_chunks, stage_floats)`` of :func:`chunk_plan`
+    for one azimuth's rays, built and uploaded once per (offsets,
+    distances, border, device, stage or blocks per SM) while it stays in
+    ``TABLES``."""
+    o = np.ascontiguousarray(offsets, np.int64)
+    d = np.ascontiguousarray(distances, np.float64)
+    key = ("chunked", o.tobytes(), o.shape, d.tobytes(), int(border), torch.device(device),
+           stage_bytes, max_blocks)
+
+    def build():
+        plan, n_chunks, stage_floats = chunk_plan([ray_groups(offsets, distances)], stage_bytes,
+                                                  max_blocks)
+        return upload(plan, device), n_chunks, stage_floats
+
+    return TABLES.get(key, build)
+
+
+def launch_chunked(entry: str, dem, plan, n_az: int, stage_floats: int, out, border, height,
+                   zero_border) -> int:
+    """Launches the chunked route's kernel ``entry`` (``sx_block_chunked_forward``
+    or ``sx_fan_chunked_forward``) on the current stream; returns its CUDA
+    error code."""
+    h, w = dem.shape
+    with torch.cuda.device(dem.device):
+        return getattr(_build.library(), entry)(
+            dem.data_ptr(), plan.data_ptr(), n_az, stage_floats, out.data_ptr(), h, w,
+            int(border), float(height), int(bool(zero_border)),
+            torch.cuda.current_stream().cuda_stream)
+
+
+def sx_block_chunked(dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
+                     zero_border: bool = True,
+                     stage_bytes: int = None) -> torch.Tensor:
+    """The chunked route on a CUDA tensor whatever the halo, with stages of
+    ``stage_bytes`` or (None) the model's stage for this grid
+    (:func:`busy_blocks_per_sm`): :func:`sx_block` takes it where the tile
+    does not fit; a plan of one chunk computes what the tile route does."""
+    global LAUNCHES
+    check_dem(dem, "sx_block")
+    max_blocks = None
+    if stage_bytes is None:
+        n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+        max_blocks = busy_blocks_per_sm(dem.shape, border, zero_border, n_sms)
+    plan, _, stage_floats = device_plan(offsets, distances, border, dem.device, stage_bytes,
+                                        max_blocks)
+    out = torch.empty(dem.shape, dtype=torch.float32, device=dem.device)
+    err = launch_chunked("sx_block_chunked_forward", dem, plan, 1, stage_floats, out, border,
+                         height, zero_border)
+    _build.check(err, "sx_block (chunked)")
+    LAUNCHES += 1
+    ROUTE_LAUNCHES["chunked"] += 1
+    return out
+
+
 def sx_block(
     dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
     zero_border: bool = True,
@@ -151,27 +350,19 @@ def sx_block(
     h, w = dem.shape
     offs_t, ptr_t, inv_t, n_rays, n_groups, box = device_tables(
         offsets, distances, border, dem.device)
-    which = route(box, n_rays, n_groups)
+    if route(box, n_rays, n_groups) == "chunked":
+        return sx_block_chunked(dem, offsets, distances, border, height, zero_border)
     out = torch.empty((h, w), dtype=torch.float32, device=dem.device)
-    lib = _build.library()
+    oy0, oy1, ox0, ox1 = box
+    vec = int(dem.data_ptr() % 16 == 0 and w % 4 == 0)  # 16-byte row loads
     with torch.cuda.device(dem.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if which == "tile":
-            oy0, oy1, ox0, ox1 = box
-            vec = int(dem.data_ptr() % 16 == 0 and w % 4 == 0)  # 16-byte row loads
-            err = lib.sx_block_tile_forward(
-                dem.data_ptr(), offs_t.data_ptr(), ptr_t.data_ptr(), inv_t.data_ptr(),
-                n_rays, n_groups, out.data_ptr(), h, w, oy0, ox0, TILE_H + oy1 - oy0,
-                TILE_W + ox1 - ox0, int(border), float(height), int(bool(zero_border)),
-                tile_smem_bytes(box, n_rays, n_groups), vec, stream,
-            )
-        else:
-            err = lib.sx_block_forward(
-                dem.data_ptr(), offs_t.data_ptr(), ptr_t.data_ptr(), inv_t.data_ptr(),
-                n_groups, out.data_ptr(), h, w, int(border), float(height),
-                int(bool(zero_border)), stream,
-            )
-    _build.check(err, f"sx_block ({which})")
+        err = _build.library().sx_block_tile_forward(
+            dem.data_ptr(), offs_t.data_ptr(), ptr_t.data_ptr(), inv_t.data_ptr(),
+            n_rays, n_groups, out.data_ptr(), h, w, oy0, ox0, TILE_H + oy1 - oy0,
+            TILE_W + ox1 - ox0, int(border), float(height), int(bool(zero_border)),
+            tile_smem_bytes(box, n_rays, n_groups), vec, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "sx_block (tile)")
     LAUNCHES += 1
-    ROUTE_LAUNCHES[which] += 1
+    ROUTE_LAUNCHES["tile"] += 1
     return out

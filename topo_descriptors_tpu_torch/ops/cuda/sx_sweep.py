@@ -7,9 +7,11 @@ with the epilogue its ``sx_*_pallas`` entry point runs after it. Both CUDA
 kernels are in ``csrc/sx_sweep.cu``, whose header says what bounds them on
 the H100 and what their two routes do about it: ``"tile"`` stages the DEM
 the rays reach in shared memory (the sweep one azimuth's wedge per block,
-the fan the union box of a group of azimuths per block), ``"global"``
-(boxes above 227 KB) reads through L1/L2. :func:`route` chooses between
-them from the shared-memory bytes alone. They compute the same (A, H, W)
+the fan the union box of a group of azimuths per block); for boxes above
+227 KB the sweep's ``"global"`` route reads through L1/L2, and the fan's
+``"chunked"`` route streams each azimuth's rays through two shared-memory
+stages, one distance band at a time, from :func:`sx_block.chunk_plan`.
+:func:`route` chooses from the shared-memory bytes alone. They compute the same (A, H, W)
 function, so they share one plain twin, :func:`sx_sweep_plain`: the
 transcription of the XLA branch of ``topo_descriptors_tpu/ops/sx.py::
 sx_sweep`` (a NaN-padded DEM and one ``torch.fmax`` pass per ray for each
@@ -28,7 +30,7 @@ kernel's launches by name, ``ROUTE_LAUNCHES`` by name and route.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ from topo_descriptors_tpu_torch.ops.cuda import _build, sx_block
 from topo_descriptors_tpu_torch.ops.cuda.sx_block import TILE_H, TILE_W
 
 LAUNCHES = {"sx_sweep": 0, "sx_fan": 0}
-ROUTE_LAUNCHES = {"sx_sweep": {"tile": 0, "global": 0}, "sx_fan": {"tile": 0, "global": 0}}
+ROUTE_LAUNCHES = {"sx_sweep": {"tile": 0, "global": 0}, "sx_fan": {"tile": 0, "chunked": 0}}
 TABLES = TableCache()
 
 # the most shared memory one block of the fan's tile route may take (its
@@ -118,10 +120,13 @@ def fan_groups(boxes, budget: int) -> list:
     return groups
 
 
-def route(smem_bytes: int) -> str:
-    """``"tile"`` when a block's shared memory fits, else ``"global"``; the
-    grid's size plays no part."""
-    return "tile" if smem_bytes <= _build.SMEM_PER_BLOCK else "global"
+def route(kernel: str, smem_bytes: int) -> str:
+    """``"tile"`` when a block's shared memory fits, else ``"global"``
+    (``sx_sweep``) or ``"chunked"`` (``sx_fan``); the grid's size plays no
+    part."""
+    if smem_bytes <= _build.SMEM_PER_BLOCK:
+        return "tile"
+    return "global" if kernel == "sx_sweep" else "chunked"
 
 
 class FanTables(NamedTuple):
@@ -140,6 +145,8 @@ class FanTables(NamedTuple):
     fan_soff: torch.Tensor  # (K',) int32, each ray's offset into its group's tile
     table_words: int  # one of the fan kernel's two table buffers, in words
     fan_smem: int  # the two table buffers and the largest group's staged tile
+    plan: Optional[torch.Tensor]  # the fan's chunked route: sx_block.chunk_plan, or None
+    stage_floats: int  # one of its two stages, in floats (0 without a plan)
 
 
 def fan_tables(offsets, distances, device) -> FanTables:
@@ -162,10 +169,16 @@ def fan_tables(offsets, distances, device) -> FanTables:
         fan.append((a0, a1, oy0, ox0, sh, sw))
     fan = np.array(fan, np.int32).reshape(-1, 6)
     fan_smem = 8 * words + max((4 * int(sh) * int(sw) for sh, sw in fan[:, 4:]), default=0)
+    plan, stage_floats = None, 0
+    if route("sx_fan", fan_smem) == "chunked":
+        plan, _, stage_floats = sx_block.chunk_plan(
+            [(offs[rays[a] : rays[a + 1]], group_ptr[az_ptr[a] : az_ptr[a + 1] + 1] - rays[a],
+              inv[az_ptr[a] : az_ptr[a + 1]]) for a in range(len(az_ptr) - 1)])
+        plan = upload(plan, device)
     return FanTables(
         *(upload(t, device) for t in (offs, group_ptr, inv, az_ptr)), len(az_ptr) - 1,
         boxes, upload(sweep_boxes, device), sweep_smem, groups, upload(fan, device),
-        upload(fan_soff, device), words, fan_smem,
+        upload(fan_soff, device), words, fan_smem, plan, stage_floats,
     )
 
 
@@ -198,14 +211,17 @@ def _launch(kernel: str, dem, offsets, distances, border, height, zero_border):
     h, w = dem.shape
     t = device_tables(offsets, distances, border, dem.device)
     smem = t.sweep_smem if kernel == "sx_sweep" else t.fan_smem
-    which = route(smem)
+    which = route(kernel, smem)
     out = torch.empty((t.n_az, h, w), dtype=torch.float32, device=dem.device)
     args = (int(border), float(height), int(bool(zero_border)))
     lib = _build.library()
     with torch.cuda.device(dem.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if which == "global":
-            err = getattr(lib, f"{kernel}_forward")(
+        if which == "chunked":
+            err = sx_block.launch_chunked("sx_fan_chunked_forward", dem, t.plan, t.n_az,
+                                          t.stage_floats, out, border, height, zero_border)
+        elif which == "global":
+            err = lib.sx_sweep_forward(
                 dem.data_ptr(), t.offsets.data_ptr(), t.group_ptr.data_ptr(), t.inv.data_ptr(),
                 t.az_ptr.data_ptr(), t.n_az, out.data_ptr(), h, w, *args, stream)
         else:
@@ -242,8 +258,8 @@ def sx_fan(
 ) -> torch.Tensor:
     """:func:`sx_sweep_plain` on a CPU tensor; on a CUDA tensor, which must
     be a contiguous float32 (H, W) DEM, the kernel with one group of
-    azimuths per block (tile route) or every azimuth per thread (global
-    route)."""
+    azimuths per block (tile route) or one azimuth per block, its rays
+    streamed band by band (chunked route)."""
     if not on_cuda(dem):
         return sx_sweep_plain(dem, offsets, distances, border, height, zero_border)
     return _launch("sx_fan", dem, offsets, distances, border, height, zero_border)

@@ -34,7 +34,11 @@ def sx(
 
     ``method`` keeps the JAX names: ``'auto'`` and ``'pallas'`` run
     ``sx_block`` (the CUDA kernel on a CUDA tensor, its plain twin on a CPU
-    tensor); ``'xla'`` runs the plain twin on any device.
+    tensor); ``'xla'`` runs the plain twin on any device. The kernel stages
+    the halo its rays reach in shared memory (route ``tile``), or, where
+    that box exceeds one block's shared memory (10 km at an oblique
+    azimuth, 20 km at any), streams the rays through two stages one
+    distance band at a time (route ``chunked``); both give the same bits.
     """
     if method not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown Sx method {method!r}: expected auto, pallas or xla")
@@ -72,17 +76,22 @@ def _sweep_auto_method(dem: torch.Tensor) -> str:
     compile costs, which the CUDA build does not have.
 
     That is ``sx_fan`` (``'pallas_fan'``). Both kernels run their
-    shared-memory tile route on the 36-azimuth fans; ``chip_smoke.py``'s
-    times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (CUDA
-    events, median of 20), ``sx_fan`` against ``sx_sweep``: 0.2620 against
-    0.3245 ms at 900 x 1440 and r = 200 m, 5.2242 against 5.1324 ms at
+    shared-memory tile route on the 36-azimuth fans up to 2000 m;
+    ``chip_smoke.py``'s times on an NVIDIA H100 80GB HBM3 at a 700.00 W
+    power limit (CUDA events, median of 20), ``sx_fan`` against
+    ``sx_sweep``: 0.2620 against 0.3245 ms at 900 x 1440 and r = 200 m,
+    5.2242 against 5.1324 ms at
     r = 2000 m (BASELINE.json configs[3]), 24.4394 against 30.3623 ms at
     8192 x 8192 and r = 500 m; 29.93 against 35.82 ms summed. A fan block
     stages its group's box and reads each output's DEM value once for all
     its azimuths, where a sweep block does both for one azimuth; that
     per-block work counts at the short radii and is lost in the ray loop at
     2000 m. The per-azimuth ``sx_block`` loop (``'pallas'``) took 4.9438,
-    10.1693 and 46.2821 ms on the same run.
+    10.1693 and 46.2821 ms on the same run. Where a fan's boxes exceed one
+    block's shared memory (10 km), ``sx_fan`` takes its ``chunked`` route
+    and ``sx_sweep`` its ``global`` one: 1.1443 against 3.1584 ms on
+    azimuths 0 and 45 at 900 x 1440 (``chip_smoke.py`` phase 5, the same
+    card and limit).
     """
     return "pallas_fan" if on_cuda(dem) else "xla"
 

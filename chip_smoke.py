@@ -22,9 +22,12 @@ Phases, each printing its lines:
    chunks against the model's plan, bit for bit; the Sx sweep and fan
    kernels on all four grids (36-azimuth fans, north-up and without the
    zero border on the 1000 x 1337 grid, the radius_min and distance-0
-   fans, 10 km fans of the sweep's global and the fan's chunked route, 36
-   azimuths at 900 x 1440), also against per-azimuth ``sx_block``, bit for
-   bit;
+   fans, and fans of both kernels' chunked routes at 900 x 1440: at 10 km
+   azimuths 0 and 45 with and without the zero border, azimuth 45 alone
+   and 36 azimuths, at 20 km azimuths 0 and 45 without it), also against
+   per-azimuth ``sx_block``, bit for bit, and on the sweep's chunked route
+   its split plans of one work item per azimuth and of one per group
+   start against the model's plan (whose S each line prints), bit for bit;
    every route of every kernel must have run;
 4. run the port's drivers on the card (TPI fused and smoothed, TPI+STD,
    Sx at 500 m and 2000 m, the 36-azimuth Sx sweep at 2000 m and 200 m)
@@ -34,8 +37,8 @@ Phases, each printing its lines:
    [2000])`` and ``compute_sx(radius=500)`` alone, and compare every
    output with the same calls run on the plain twins; then ``compute_sx``
    at 45 degrees and the 36-azimuth ``compute_sx_sweep`` at 10 km, which
-   must launch the chunked routes of ``sx_block`` and ``sx_fan`` and no
-   ``global`` route, against the same calls on the twins;
+   must launch the chunked routes of ``sx_block`` and ``sx_fan`` once each
+   and nothing else, against the same calls on the twins;
 5. time each kernel against its twin (CUDA events, median of 20; a twin
    that takes over a second per call, median of 3) beside its bound (the
    larger of its operations over the float32 peak and its bytes over the
@@ -47,11 +50,11 @@ Phases, each printing its lines:
    (201, 667, 3333 px) on 900 x 1440, 667 px on the STD moment stack, and
    667 and 201 px at 8192 x 8192, each first held against its twin as in
    phase 3, then timed with its twin (a call over 200 ms: median of 3),
-   bound (kernel rows inside the field only), launches and, where it runs
-   in well under 10 s, the library call; the whole ``ops.tpi`` at 3333 px
-   with its host parts; and the Sx kernels at 10 km (``sx_block``'s and
-   ``sx_fan``'s chunked routes, ``sx_sweep``'s global route) on 900 x 1440
-   and 8192 x 8192, the 8192 x 8192 fan's twin on a crop;
+   bound (kernel rows inside the field only), launches and the library
+   call (one call for 667 px at 8192 x 8192, ~12 s); the whole ``ops.tpi`` at 3333 px
+   with its host parts; and the Sx kernels' chunked routes at 10 km on
+   900 x 1440 and 8192 x 8192 (``sx_sweep`` with the S of its split plan),
+   the 8192 x 8192 fans' twins on a crop;
 6. run the third slice on the 900 x 1440 grid with NaN holes, at the
    reference's scales: ``compute_dem``, ``compute_gradient`` (both checked
    against the same drivers on the CPU), ``compute_valley_ridge`` in valley
@@ -166,7 +169,8 @@ def build():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("row_scanILi1E", "row_scanILi128E", "disk_sat_wide",
                                        "disk_sat_tile", "sx_block_tile", "sx_block_chunked",
-                                       "sx_sweep_kernel", "sx_fan_chunked", "sx_sweep_tile",
+                                       "sx_sweep_chunkedILb0E", "sx_sweep_chunkedILb1E",
+                                       "sx_sweep_combine", "sx_sweep_tile",
                                        "sx_fan_tile")
                            if k in line), line.split("'")[1][:40])
         elif kernel and ("registers" in line or "spill" in line):
@@ -338,12 +342,15 @@ def sweep_cases(grid):
     """(name, offsets, distances, border, zero_border) of the deduplicated
     fans checked on ``grid``: the 36-azimuth sweep at both radii of
     BASELINE.json configs[3], a ragged radius_min fan, the distance-0 fan
-    and 10 km fans whose boxes do not fit in shared memory (the sweep's
-    global route, the fan's chunked route; azimuths 0 and 45 and the
-    36-azimuth sweep) at 900x1440; the 36-azimuth sweep at 500 m at
-    8192x8192; at 1000x1337 (no tile multiple) the 2000 m sweep north-up (dy < 0) and
-    without the zero border, and the 500 m one; at 50x61 (smaller than the
-    2000 m halo) the 2000 m sweep and the 10 km fan."""
+    and, at 900x1440, fans whose boxes do not fit in shared memory (both
+    kernels' chunked routes): at 10 km azimuths 0 and 45 with and without
+    the zero border, azimuth 45 alone (the grid leaves SMs idle: the
+    sweep's plan splits) and the 36-azimuth sweep, and azimuths 0 and 45 at
+    20 km without the zero border (with it, the 667-px border covers the
+    grid); the 36-azimuth sweep at 500 m at 8192x8192; at 1000x1337 (no
+    tile multiple) the 2000 m sweep north-up (dy < 0) and without the zero
+    border, and the 500 m one; at 50x61 (smaller than the 2000 m halo) the
+    2000 m sweep and the 10 km fan."""
     from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
 
     # (name, azimuths, radius, radius_min, dy, zero_border)
@@ -353,6 +360,9 @@ def sweep_cases(grid):
                      ("r300_radius_min100", (10, 200, 355), 300.0, 100.0, 30.0, True),
                      ("r250_distance0", (225, 45), 250.0, 0.0, 30.0, True),
                      ("r10000", (0, 45), 10_000.0, 0.0, 30.0, True),
+                     ("r10000_az45", (45,), 10_000.0, 0.0, 30.0, True),
+                     ("r10000_nozero", (0, 45), 10_000.0, 0.0, 30.0, False),
+                     ("r20000_nozero", (0, 45), 20_000.0, 0.0, 30.0, False),
                      ("36az_r10000", SWEEP_AZIMUTHS, 10_000.0, 0.0, 30.0, True)],
         "8192x8192": [("36az_r500", SWEEP_AZIMUTHS, 500.0, 0.0, 30.0, True)],
         "1000x1337": [("36az_r2000_northup_nozero", SWEEP_AZIMUTHS, 2000.0, 0.0, -30.0, False),
@@ -375,21 +385,66 @@ def sweep_routes(o, d, b, device):
     from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
 
     t = sx_sweep.device_tables(o, d, b, device)
-    return {"sx_sweep": sx_sweep.route("sx_sweep", t.sweep_smem),
-            "sx_fan": sx_sweep.route("sx_fan", t.fan_smem)}
+    return {"sx_sweep": sx_sweep.route(t.sweep_smem), "sx_fan": sx_sweep.route(t.fan_smem)}
+
+
+def sweep_splits(o, d, b, dem, zero_border=True):
+    """The work items per azimuth of the sweep's split plan for this fan
+    and grid (:func:`sx_sweep.device_sweep_plan`), or None where the sweep
+    takes its tile route or its package has no split plan."""
+    from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
+
+    plan = getattr(sx_sweep, "device_sweep_plan", None)  # None before the split route
+    if plan is None:
+        return None
+    if sx_sweep.route(sx_sweep.device_tables(o, d, b, dem.device).sweep_smem) == "tile":
+        return None
+    n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+    return plan(o, d, b, dem.device, dem.shape, zero_border, n_sms).splits.tolist()
+
+
+def forced_split(dem, o, d, b, zero_border, splits):
+    """The sweep's chunked route with S forced: the model's chunk plan for
+    this grid cut into ``splits`` work items per azimuth where its group
+    starts allow (``sx_block.split_plan``). Returns (the planes, S per
+    azimuth); counts no launch."""
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+
+    n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+    p = sx_sweep.device_sweep_plan(o, d, b, dem.device, dem.shape, zero_border, n_sms)
+    plan = p.plan.cpu().numpy()
+    items, per_az, _ = sx_block.split_plan(plan, len(o), 0, n_sms, 3, splits)
+    forced = sx_sweep.upload_plan(plan, p.stage_floats, items, per_az, dem.device)
+    return sx_sweep.launch_sweep_chunked(dem, forced, b, 10.0, zero_border), per_az.tolist()
+
+
+def brief(splits):
+    """Work items per azimuth, or their most for a long fan."""
+    return splits if len(splits) <= 4 else f"at most {max(splits)}"
 
 
 def check_sweep(name, dem, o, d, b, zero_border, grid):
     """Both fan kernels against the twin, plane by plane (the (36, 8192,
     8192) stacks are 9.7 GB each), and bit for bit against sx_block on the
     azimuth's table: the three kernels share the per-pixel code and the
-    1/distance groups. Returns the errors and the twin's time over the
+    1/distance groups. On the sweep's chunked route also its split plans of
+    one work item per azimuth and of one per group start, bit for bit
+    against the model's. Returns the errors and the twin's time over the
     planes (CUDA events around each plane's call, summed)."""
     from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
 
     routes = sweep_routes(o, d, b, dem.device)
     outs = {"sx_sweep": sx_sweep.sx_sweep(dem, o, d, b, 10.0, zero_border),
             "sx_fan": sx_sweep.sx_fan(dem, o, d, b, 10.0, zero_border)}
+    split_text = ""
+    if routes["sx_sweep"] == "chunked":
+        for forced in (1, 10**6):
+            again, most = forced_split(dem, o, d, b, zero_border, forced)
+            check(same_bits(again, outs["sx_sweep"]),
+                  f"sx_sweep {name} {grid}: the plan of {forced} items per azimuth differs")
+            del again
+        split_text = (f"; sweep plan S = {brief(sweep_splits(o, d, b, dem, zero_border))}, "
+                      f"bit-equal to S = 1 and to one item per group start, S = {brief(most)}")
     torch.cuda.synchronize()
     errs = dict.fromkeys(outs, 0.0)
     twin_ms = 0.0
@@ -408,7 +463,7 @@ def check_sweep(name, dem, o, d, b, zero_border, grid):
     print(f"[parity] sx_sweep/sx_fan {name} {grid} A={len(o)} rays={n_rays} border={b} "
           f"zero_border={zero_border} ({routes['sx_sweep']}/{routes['sx_fan']} route): "
           f"max|kernel-twin| {errs['sx_sweep']:.6g} / {errs['sx_fan']:.6g} deg "
-          f"(tol {SX_ATOL}), NaN positions equal, every plane bit-equal to sx_block")
+          f"(tol {SX_ATOL}), NaN positions equal, every plane bit-equal to sx_block{split_text}")
     for kernel, err in errs.items():
         check(err <= SX_ATOL, f"{kernel} {name} {grid}: {err} > {SX_ATOL}")
     return errs, twin_ms
@@ -555,19 +610,33 @@ def compare_outputs(main, ref, shape):
               f"max|cuda-twins| {err:.6g} {unit} (tol {tol})")
 
 
+def driver_fan(dem_ds, radius):
+    """The deduplicated 36-azimuth fan at ``radius`` on ``dem_ds``'s
+    geometry, as the driver builds it: the grid's signed metric
+    resolutions."""
+    from topo_descriptors_tpu_torch.host import sx_sweep_dedupe, sx_sweep_offsets
+
+    res = dem_ds.grid.resolution_meters()
+    o, d, b = sx_sweep_offsets(SWEEP_AZIMUTHS, float(radius), float(res["x"].mean()),
+                               float(res["y"].mean()))
+    return (*sx_sweep_dedupe(o, d), b)
+
+
+def auto_kernel_of(dem, o, d, b):
+    """The fan kernel ``auto`` gives a deduplicated fan on ``dem``."""
+    from topo_descriptors_tpu_torch.ops.sx import _sweep_auto_method
+
+    return {"pallas_fan": "sx_fan", "pallas_sweep": "sx_sweep"}[_sweep_auto_method(dem, o, d, b)]
+
+
 def other_sweep_call(dem_ds, dem):
     """``ops.sx_sweep`` on the 36-azimuth 200 m fan of ``dem_ds`` (``dem``
     on the card) with the fan kernel that ``auto`` does not pick, so the
-    driven run reaches both. The geometry is the driver's: the grid's
-    signed metric resolutions."""
+    driven run reaches both."""
     from topo_descriptors_tpu_torch import ops
-    from topo_descriptors_tpu_torch.host import sx_sweep_offsets
-    from topo_descriptors_tpu_torch.ops.sx import _sweep_auto_method
 
-    method = {"pallas_fan": "pallas_sweep", "pallas_sweep": "pallas_fan"}[_sweep_auto_method(dem)]
-    res = dem_ds.grid.resolution_meters()
-    o, d, b = sx_sweep_offsets(SWEEP_AZIMUTHS, 200.0, float(res["x"].mean()),
-                               float(res["y"].mean()))
+    o, d, b = driver_fan(dem_ds, 200)
+    method = {"sx_fan": "pallas_sweep", "sx_sweep": "pallas_fan"}[auto_kernel_of(dem, o, d, b)]
     return method, ops.sx_sweep(dem, o, d, b, method=method, device=dem.device)
 
 
@@ -593,29 +662,34 @@ def check_sweep_drivers(dem_ds, main_out, other_out):
 
 
 # the 10 km driver calls: a halo too large for one staged box, so the
-# chunked routes of sx_block and sx_fan (auto)
+# chunked routes: sx_block's, sx_fan's (auto, 36 azimuths) and sx_sweep's
+# (auto, two azimuths: its split plan fills the SMs that 104 busy tiles
+# leave idle)
 TEN_KM_CALLS = [("compute_sx", dict(azimuth=45, radius=10_000)),
-                ("compute_sx_sweep", dict(azimuths=SWEEP_AZIMUTHS, radius=10_000))]
+                ("compute_sx_sweep", dict(azimuths=SWEEP_AZIMUTHS, radius=10_000)),
+                ("compute_sx_sweep", dict(azimuths=(0, 45), radius=10_000))]
 
 
 def run_10km_drivers(dem_ds, use_h5py):
-    """``compute_sx`` at azimuth 45 and the 36-azimuth ``compute_sx_sweep``
-    at 10 km on the card: each must launch its kernel's chunked route once
-    and no ``global`` route; their outputs against the same calls on the
-    twins, and the sweep's azimuth-130 plane against ``pipeline.sx``'s, bit
-    for bit. Returns the launches by kernel and by route."""
+    """``compute_sx`` at azimuth 45 and ``compute_sx_sweep`` over 36
+    azimuths and over azimuths 0 and 45 at 10 km on the card: they must
+    launch the chunked routes of ``sx_block``, ``sx_fan`` and ``sx_sweep``
+    once each and no other route; their outputs against the same calls on
+    the twins, the 36-azimuth sweep's azimuth-130 plane against
+    ``pipeline.sx``'s, and the two-azimuth sweep's planes against the
+    36-azimuth sweep's at azimuth 0 and ``compute_sx``'s at 45, bit for
+    bit. Returns the launches by kernel and by route."""
     reset_launches()
     start = time.perf_counter()
     out, walls = run_drivers(dem_ds, TEN_KM_CALLS, use_h5py, prefix="km10_")
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, routes = read_launches(), read_route_launches()
-    check(routes["sx_block"].get("chunked") == 1 and routes["sx_fan"].get("chunked") == 1
-          and all(routes[k].get("global", 0) == 0 for k in ("sx_block", "sx_fan")),
+    check(all(routes[k] == {"tile": 0, "chunked": 1} for k in ("sx_block", "sx_fan", "sx_sweep")),
           f"the 10 km drivers did not take the chunked routes alone: {routes}")
     with plain_twins():
         ref, ref_walls = run_drivers(dem_ds, TEN_KM_CALLS, use_h5py, prefix="km10_")
-    check(sorted(out) == sorted(ref) and len(out) == 1 + len(SWEEP_AZIMUTHS),
+    check(sorted(out) == sorted(ref) and len(out) == 3 + len(SWEEP_AZIMUTHS),
           f"10 km outputs {sorted(out)}")
     worst = 0.0
     for name in sorted(out):
@@ -631,11 +705,18 @@ def run_10km_drivers(dem_ds, use_h5py):
     check(np.array_equal(out["km10_1/SX_RADIUS10000_AZIMUTH130"].data.view(np.int32),
                          single.view(np.int32)),
           "the 10 km sweep's azimuth 130 differs from pipeline.sx")
+    pairs = [("km10_2/SX_RADIUS10000_AZIMUTH0", "km10_1/SX_RADIUS10000_AZIMUTH0"),
+             ("km10_2/SX_RADIUS10000_AZIMUTH45", "km10_0/SX_RADIUS10000_AZIMUTH45")]
+    for a, b in pairs:
+        check(np.array_equal(out[a].data.view(np.int32), out[b].data.view(np.int32)),
+              f"10 km: {a} differs from {b}")
     print(f"[drivers] 10 km: compute_sx(azimuth=45) {walls[0]:.3f} s, compute_sx_sweep(36 "
-          f"azimuths) {walls[1]:.3f} s on the card ({ref_walls[0]:.3f} s, {ref_walls[1]:.3f} s "
-          f"on the twins); launches {launches}, per route {routes}; {1 + len(SWEEP_AZIMUTHS)} "
-          f"planes max|cuda-twins| {worst:.6g} deg (tol {SX_ATOL}), the sweep's azimuth 130 "
-          f"bit-equal to pipeline.sx ({wall:.3f} s)")
+          f"azimuths) {walls[1]:.3f} s, compute_sx_sweep(azimuths 0, 45) {walls[2]:.3f} s on the "
+          f"card ({ref_walls[0]:.3f} s, {ref_walls[1]:.3f} s, {ref_walls[2]:.3f} s on the twins); "
+          f"launches {launches}, per route {routes}; {3 + len(SWEEP_AZIMUTHS)} planes "
+          f"max|cuda-twins| {worst:.6g} deg (tol {SX_ATOL}), the 36-azimuth sweep's azimuth 130 "
+          f"bit-equal to pipeline.sx, the two-azimuth sweep's planes to the 36-azimuth sweep's "
+          f"(azimuth 0) and to compute_sx (45) ({wall:.3f} s)")
     return launches, routes
 
 
@@ -834,18 +915,18 @@ def time_kernels(grids, smi_line):
 
 # the disk kernel's wide route: (grid, disk px, B) as the batch feeds it
 # (TPI: the mean-centred DEM; B = 3: STD's moment stack); the library call
-# runs where it takes well under 10 s (F.conv2d here: about 2e12 MAC/s)
+# (F.conv2d here: about 2e12 MAC/s) times one call where it takes ~12 s
+# (2.34e13 MACs), else a median of 3 after a first call
 WIDE_CASES = (("900x1440", 201, 1), ("900x1440", 667, 1), ("900x1440", 3333, 1),
               ("900x1440", 667, 3), ("8192x8192", 667, 1), ("8192x8192", 201, 1))
-WIDE_LIBRARY = {("900x1440", 201, 1), ("900x1440", 667, 1), ("900x1440", 3333, 1),
-                ("900x1440", 667, 3), ("8192x8192", 201, 1)}
+WIDE_LIBRARY_ONCE = {("8192x8192", 667, 1)}
 # a wide case's call over 200 ms (twins, library) is timed as a median of 3
 WIDE_SLOW_MS = 200.0
 
 
 def time_wide(grids, smi_line):
-    """The wide route of ``disk_sat`` against its twin and, where timed, the
-    library call, beside its bound (rows inside the field only), with the
+    """The wide route of ``disk_sat`` against its twin and the library
+    call, beside its bound (rows inside the field only), with the
     launches of one call by route; every timed case is first held against
     the twin as phase 3 holds it (:func:`check_disk`)."""
     from topo_descriptors_tpu_torch.host import circular_kernel
@@ -874,11 +955,12 @@ def time_wide(grids, smi_line):
         work = disk_work(xs.shape, kernel.shape, runs, pads)
         t_bound, bound_by = bound(*work)
         macs = xs.numel() * float(kernel.sum())
-        if (grid, size, fields) in WIDE_LIBRARY:
+        if (grid, size, fields) in WIDE_LIBRARY_ONCE:
+            _, t_lib = timed(disk_library(xs, kernel))
+            lib_text = f"library F.conv2d full float32 {t_lib:.4f} ms (one call, {macs:.3g} MACs)"
+        else:
             t_lib, lib_reps = slow_median_ms(disk_library(xs, kernel), WIDE_SLOW_MS)
             lib_text = f"library F.conv2d full float32 {t_lib:.4f} ms (median of {lib_reps})"
-        else:
-            t_lib, lib_text = None, f"library F.conv2d: not run ({macs:.3g} MACs)"
         case = f"{size}px {grid} B={fields}"
         times[case] = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound, bound_by=bound_by,
                            library_ms=t_lib, launches_per_call=per_call)
@@ -927,10 +1009,13 @@ def whole_op_tpi(dem, smi_line):
 # phase 5's Sx route cases, all at 10 km: (label, kernel, grid, azimuths;
 # None for one azimuth at 45 degrees)
 SX_ROUTE_CASES = (("sx_block az 45 900x1440", "sx_block", "900x1440", None),
+                  ("sx_sweep az 45 900x1440", "sx_sweep", "900x1440", (45,)),
                   ("sx_sweep az 0, 45 900x1440", "sx_sweep", "900x1440", (0, 45)),
                   ("sx_fan az 0, 45 900x1440", "sx_fan", "900x1440", (0, 45)),
+                  ("sx_sweep 36 az 900x1440", "sx_sweep", "900x1440", SWEEP_AZIMUTHS),
                   ("sx_fan 36 az 900x1440", "sx_fan", "900x1440", SWEEP_AZIMUTHS),
                   ("sx_block az 45 8192x8192", "sx_block", "8192x8192", None),
+                  ("sx_sweep az 45 8192x8192", "sx_sweep", "8192x8192", (45,)),
                   ("sx_fan 36 az 8192x8192", "sx_fan", "8192x8192", SWEEP_AZIMUTHS))
 # the 36-azimuth twin at 10 km on 8192^2 would take minutes: on this crop
 TWIN_CROP = 1024
@@ -950,9 +1035,10 @@ def time_sx_routes(grids, smi_line, twin_ms=None, twins=True):
     (``SX_ROUTE_CASES``): the kernel (CUDA events, median of 20, a call over
     a second median of 3) with the route it ran, read from the launch
     counts, so that the same function times an earlier package whose routes
-    have other names; the twin, its bound (``sx_work``) and the share. The
-    twins: median of 3 where over 0.1 s; the 36-azimuth twin at 900x1440 is
-    phase 3's one call (``twin_ms``); at 8192^2 the fan is held bit for bit
+    have other names, and for ``sx_sweep`` the work items per azimuth of its
+    split plan; the twin, its bound (``sx_work``) and the share. The twins:
+    median of 3 where over 0.1 s; the 36-azimuth twin at 900x1440 is phase
+    3's one call (``twin_ms``); at 8192^2 the fans are held bit for bit
     against ``sx_block`` per azimuth, and kernel and twin are timed and
     compared on a ``TWIN_CROP``-square crop. ``twins=False``: kernels only."""
     from topo_descriptors_tpu_torch.host import (sx_dedupe, sx_offsets, sx_sweep_dedupe,
@@ -977,6 +1063,7 @@ def time_sx_routes(grids, smi_line, twin_ms=None, twins=True):
             plain = lambda: sx_sweep.sx_sweep_plain(dem, o, d, b, 10.0)  # noqa: E731
             routes = sx_sweep.ROUTE_LAUNCHES[kernel]
         out, ran = ran_route(routes, fast)
+        splits = sweep_splits(o, d, b, dem) if kernel == "sx_sweep" else None
         crop_text = ""
         if grid == "8192x8192" and azimuths is not None:
             for a in range(len(o)):  # the planes against sx_block, bit for bit
@@ -1010,11 +1097,12 @@ def time_sx_routes(grids, smi_line, twin_ms=None, twins=True):
         work = sx_work(dem.shape, o, d, b)
         t_bound, bound_by = bound(*work)
         times[label] = dict(kernel=kernel, grid=grid, azimuths=azimuths, route=ran,
-                            ms=t_kernel, reps=reps, plain_ms=t_plain,
+                            splits=splits, ms=t_kernel, reps=reps, plain_ms=t_plain,
                             plain_reps=plain_reps if twins and label not in twin_ms else 1,
                             bound_ms=t_bound, bound_by=bound_by, library_ms=None)
-        print(f"[time] {label}, Sx 10 km ({len(o) if azimuths else 1} az, route {ran}): kernel "
-              f"{t_kernel:.4f} ms (median of {reps}), {plain_text}; bound {t_bound:.4f} ms "
+        split_text = f", S = {brief(splits)}" if splits else ""
+        print(f"[time] {label}, Sx 10 km ({len(o) if azimuths else 1} az, route {ran}{split_text}): "
+              f"kernel {t_kernel:.4f} ms (median of {reps}), {plain_text}; bound {t_bound:.4f} ms "
               f"({bound_by}; {work[0]:.4g} ops, {work[1]:.4g} bytes), share of bound "
               f"{t_bound / t_kernel:.4f}; library call: none{crop_text} on {smi_line}")
     return times
@@ -1029,7 +1117,6 @@ def tune_chunk_stage():
     with its chunks and staged values per output (CUDA events, median of
     5). Run on its own: ``python3 -c "import chip_smoke;
     chip_smoke.tune_chunk_stage()"``."""
-    from topo_descriptors_tpu_torch.device import upload
     from topo_descriptors_tpu_torch.host import (basodino_like_dem, sx_dedupe, sx_offsets,
                                                  sx_sweep_dedupe, sx_sweep_offsets)
     from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
@@ -1041,10 +1128,7 @@ def tune_chunk_stage():
              "4096x4096": big[:4096, :4096].contiguous()}
     fo, fd, fb = sx_sweep_offsets(SWEEP_AZIMUTHS, 10_000.0, 30.0, 30.0)
     fo, fd = sx_sweep_dedupe(fo, fd)
-    flat = sx_sweep.sweep_tables(fo, fd)
-    rays = flat[1][flat[3]]
-    fan = [(flat[0][k0:k1], flat[1][g0 : g1 + 1] - k0, flat[2][g0:g1])
-           for k0, k1, g0, g1 in zip(rays[:-1], rays[1:], flat[3][:-1], flat[3][1:])]
+    fan = sx_sweep.azimuth_tables(*sx_sweep.sweep_tables(fo, fd))
     stages = {f"{n} per SM": stage for n, stage in sx_block.CHUNK_STAGES.items()}
     for label, stage in {**stages, "model": None}.items():
         for radius in (10_000.0, 20_000.0):
@@ -1059,26 +1143,83 @@ def tune_chunk_stage():
                   f"45 8192x8192: {n_chunks} chunks, {staged:.1f} staged values per output "
                   f"against {len(o)} rays, {ms:.4f} ms (median of 5) on {smi_line}")
         plan, n_chunks, stage_floats = sx_block.chunk_plan(fan, stage)
+        items, per_az, _ = sx_block.split_plan(plan, len(fo), 0, 1, 1, splits=1)
         for grid, dem in grids.items():
-            out = torch.empty((len(fo),) + tuple(dem.shape), dtype=torch.float32,
-                              device=dem.device)
-            plan_t = upload(plan, dem.device)
-
-            def run():
-                return sx_block.launch_chunked("sx_fan_chunked_forward", dem, plan_t, len(fo),
-                                               stage_floats, out, fb, 10.0, True)
-
-            check(run() == 0, f"sx_fan chunked launch failed at stage {label}")
-            ms = median_ms(run, reps=5)
+            p = sx_sweep.upload_plan(plan, stage_floats, items, per_az, dem.device)
+            ms = median_ms(lambda: sx_sweep.launch_sweep_chunked(dem, p, fb, 10.0, True, "sx_fan"),
+                           reps=5)
             print(f"[tune] stage {label} ({4 * stage_floats} B): sx_fan 36 az 10 km {grid}: "
                   f"{n_chunks} chunks, {ms:.4f} ms (median of 5) on {smi_line}")
 
 
-def time_routes_alone():
-    """Phase 5's Sx route timings alone (kernels only), for the package that
-    comes first on ``sys.path``: so an earlier commit's package is timed
-    beside this one's in one run (``PERF.md`` section 6 says how)."""
+def tune_split():
+    """``sx_sweep``'s chunked route on 900x1440 at 10 km (azimuth 45 alone;
+    0 and 45; 0, 45 and 90), where the unsplit grid leaves SMs idle, on
+    every split plan: for each stage of ``sx_block.CHUNK_STAGES``, S = 1, 2,
+    ... work items per azimuth as far as its group starts allow, each held
+    bit for bit against S = 1, its time (CUDA events, median of 10) beside
+    the model's (``split_plan``, ray reads per output); then the plan the
+    model picks, launched as those were (``launch_sweep_chunked``) against
+    the best timed one and through its wrapper (``sx_sweep_chunked``, its
+    host work included), and ``sx_fan``'s chunked route on the same fan.
+    Run on its own: ``python3 -c "import chip_smoke;
+    chip_smoke.tune_split()"``."""
+    from topo_descriptors_tpu_torch.host import (basodino_like_dem, sx_sweep_dedupe,
+                                                 sx_sweep_offsets)
+    from topo_descriptors_tpu_torch.ops.cuda import sx_block, sx_sweep
+
+    _, smi_line = card()
+    build()
+    dem = torch.from_numpy(basodino_like_dem(projected=True).data).cuda()
+    n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+    for azimuths in ((45,), (0, 45), (0, 45, 90)):
+        o, d, b = sx_sweep_offsets(azimuths, 10_000.0, 30.0, 30.0)
+        o, d = sx_sweep_dedupe(o, d)
+        tables = sx_sweep.azimuth_tables(*sx_sweep.sweep_tables(o, d))
+        tiles = sx_block.busy_tiles(dem.shape, b, True)
+        ref, _ = forced_split(dem, o, d, b, True, 1)
+        best = None
+        for n, stage in sx_block.CHUNK_STAGES.items():
+            plan, n_chunks, stage_floats, _ = sx_block._chunk_plan(tables, stage)
+            for splits in range(1, n_chunks + 1):
+                items, per_az, model = sx_block.split_plan(plan, len(tables), tiles, n_sms, n,
+                                                           splits)
+                if per_az.max() < splits:  # every azimuth at its most items
+                    break
+                p = sx_sweep.upload_plan(plan, stage_floats, items, per_az, dem.device)
+                check(same_bits(sx_sweep.launch_sweep_chunked(dem, p, b, 10.0, True), ref),
+                      f"sx_sweep {azimuths}: the plan of S = {per_az.tolist()} differs")
+                ms = median_ms(lambda: sx_sweep.launch_sweep_chunked(dem, p, b, 10.0, True),
+                               reps=10)
+                if best is None or ms < best[0]:
+                    best = (ms, n, per_az.tolist())
+                print(f"[tune] sx_sweep split az {azimuths} 10 km 900x1440, stage {n} per SM "
+                      f"({4 * stage_floats} B, {n_chunks} chunks): S = {per_az.tolist()}, "
+                      f"{tiles * len(items)} busy blocks, model {model:.0f}: {ms:.4f} ms "
+                      f"(median of 10) on {smi_line}")
+        plan = sx_sweep.device_sweep_plan(o, d, b, dem.device, dem.shape, True, n_sms)
+        ms = median_ms(lambda: sx_sweep.launch_sweep_chunked(dem, plan, b, 10.0, True), reps=10)
+        wrapped = median_ms(lambda: sx_sweep.sx_sweep_chunked(dem, o, d, b, 10.0), reps=10)
+        fan = median_ms(lambda: sx_sweep.sx_fan(dem, o, d, b, 10.0), reps=10)
+        print(f"[tune] sx_sweep split az {azimuths} 10 km 900x1440: the model's plan "
+              f"({4 * plan.stage_floats} B stage) S = {sweep_splits(o, d, b, dem)} {ms:.4f} ms, "
+              f"{ms / best[0]:.3f} x the best timed plan (stage {best[1]} per SM, S = {best[2]}, "
+              f"{best[0]:.4f} ms); through sx_sweep_chunked {wrapped:.4f} ms; sx_fan chunked "
+              f"{fan:.4f} ms (median of 10) on {smi_line}")
+
+
+def time_routes_alone(package_root=None):
+    """Phase 5's Sx route timings alone (kernels only), for the package under
+    ``package_root`` (put first on ``sys.path``; None: the one found first),
+    so that an earlier commit's package, unpacked with ``git archive``, is
+    timed beside this one's in one call: ``python3 -c "import chip_smoke;
+    chip_smoke.time_routes_alone('build/parent')"``."""
+    if package_root is not None:
+        sys.path.insert(0, str(package_root))
+    import topo_descriptors_tpu_torch
     from topo_descriptors_tpu_torch.host import basodino_like_dem
+
+    print(f"[time] Sx routes of the package at {Path(topo_descriptors_tpu_torch.__file__).parent}")
 
     _, smi_line = card()
     build()
@@ -2666,7 +2807,6 @@ def main() -> int:
     name, smi_line = card()
     from topo_descriptors_tpu_torch.host import basodino_like_dem, fill_na
     from topo_descriptors_tpu_torch.ops.cuda import sx_sweep
-    from topo_descriptors_tpu_torch.ops.sx import _sweep_auto_method
 
     build()
 
@@ -2695,7 +2835,7 @@ def main() -> int:
         for case in sweep_cases(grid):
             case_errs, ms = check_sweep(case[0], dem, *case[1:], grid)
             if (case[0], grid) == ("36az_r10000", "900x1440"):
-                twin_ms["sx_fan 36 az 900x1440"] = ms
+                twin_ms["sx_sweep 36 az 900x1440"] = twin_ms["sx_fan 36 az 900x1440"] = ms
             for kernel, err in case_errs.items():
                 errs[kernel] = max(errs[kernel], err)
     routes = read_route_launches()
@@ -2710,8 +2850,7 @@ def main() -> int:
     use_h5py = importlib.util.find_spec("h5py") is not None
     print(f"[drivers] writing {'NetCDF through h5py, read back' if use_h5py else 'to memory (no h5py here)'}")
     dem_filled = torch.from_numpy(np.ascontiguousarray(dem_ds.data, np.float32)).cuda()
-    auto_kernel = {"pallas_fan": "sx_fan", "pallas_sweep": "sx_sweep"}[
-        _sweep_auto_method(dem_filled)]
+    auto_kernel = auto_kernel_of(dem_filled, *driver_fan(dem_ds, 2000))  # the main path's fans
     reset_launches()
     start = time.perf_counter()
     main_out, _ = run_drivers(dem_ds, main_path_calls(ind_nans), use_h5py)
@@ -2757,8 +2896,7 @@ def main() -> int:
     wide_times = time_wide(grids, smi_line)
     route_times = time_sx_routes(grids, smi_line, twin_ms)
     for label, t in route_times.items():
-        want = "global" if t["kernel"] == "sx_sweep" else "chunked"
-        check(t["route"] == [want], f"{label}: route {t['route']}, not {want}")
+        check(t["route"] == ["chunked"], f"{label}: route {t['route']}, not chunked")
     print(f"[time] done at {time.perf_counter() - t0:.1f} s")
     del grids
     slice3_launches, slice3_out = run_slice3(dem_ds, ind_nans, use_h5py, dem_filled,
@@ -2813,9 +2951,9 @@ def main() -> int:
                     entry[f"{key}{suffix}"] = value
         if kernel == "disk_sat":  # the wide route, phase 5
             entry["wide"] = wide_times
-        else:  # the 10 km cases, phase 5: chunked (sx_block, sx_fan) or global (sx_sweep)
-            entry["chunked" if kernel != "sx_sweep" else "global"] = {
-                label: {k: t[k] for k in ("grid", "route", "ms", "plain_ms", "bound_ms",
+        else:  # the 10 km cases, phase 5: the chunked routes
+            entry["chunked"] = {
+                label: {k: t[k] for k in ("grid", "route", "splits", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}
                 for label, t in route_times.items() if t["kernel"] == kernel}
         add_shares(entry)

@@ -26,6 +26,8 @@ sides compute the same float32 ratios and differ only in ``atan``), NaN
 positions identical.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,11 +78,12 @@ def _parse(plan, n_az):
     return plan[: n_az + 1], plan[head : head + 8 * int(plan[n_az])].reshape(-1, 8)
 
 
-def replay(dem, plan, n_az, a, height=10.0):
-    """Azimuth ``a``'s max-ratio plane as the chunked kernel computes it from
-    ``plan``, and the chunks that set some in-grid maximum."""
+def replay_items(dem, plan, n_az, ranges, height=10.0):
+    """The running maxima the chunked kernel computes from ``plan`` over each
+    range ``(c0, c1)`` of its chunks, from -inf (one plane per range), and
+    the chunks that set some in-grid maximum."""
     h, w = dem.shape
-    az_chunk, recs = _parse(plan, n_az)
+    _, recs = _parse(plan, n_az)
     ty, tx = -(-h // TILE_H), -(-w // TILE_W)
     pad = int(np.abs(recs[:, 4:6]).max(initial=0)) + 1
     big = np.full((ty * TILE_H + 2 * pad + max(int(recs[:, 6].max(initial=0)), 0),
@@ -93,35 +96,59 @@ def replay(dem, plan, n_az, a, height=10.0):
     inside = ((ys < h) & (xs < w)).reshape(ty * tx, -1)
     base = np.where(inside, big[pad + ys, pad + xs].reshape(ty * tx, -1) + np.float32(height),
                     np.float32(0.0))
-    acc = np.full(base.shape, -np.inf, np.float32)
-    best = np.full(base.shape, np.nan, np.float32)
-    live = []
-    with np.errstate(invalid="ignore"):  # the distance-0 quirk: 0 * inf
-        for c in range(az_chunk[a], az_chunk[a + 1]):
-            word, n, n_seg, flags, oy0, ox0, sh, sw = (int(v) for v in recs[c])
-            table = plan[word : word + sx_block._table_words(n, n_seg)]
-            soff, gp = table[:n], table[n : n + n_seg + 1]
-            inv = table[n + n_seg + 1 : n + 2 * n_seg + 1].view(np.float32)
-            windows = np.lib.stride_tricks.sliding_window_view(big, (sh, sw))
-            boxes = windows[pad + oy0 :: TILE_H, pad + ox0 :: TILE_W][:ty, :tx]
-            boxes = boxes.reshape(ty * tx, sh * sw)
-            at = (yl * sw + xl).reshape(-1)
-            assert soff.min(initial=0) >= 0 and at.max() + soff.max(initial=0) < sh * sw
-            before = acc.copy()
-            for g in range(n_seg):
-                k, k1 = int(gp[g]), int(gp[g + 1])
-                if g > 0 or not flags & sx_block.CARRY_IN:
-                    best = boxes[:, at + soff[k]]
-                    k += 1
-                for kk in range(k, k1):
-                    best = np.fmax(best, boxes[:, at + soff[kk]])
-                if flags & sx_block.CARRY_OUT and g == n_seg - 1:
-                    break
-                acc = np.fmax(acc, (best - base) * inv[g])
-            if (acc[inside] != before[inside]).any():
-                live.append(c)
-    plane = acc.reshape(ty, tx, TILE_H, TILE_W).transpose(0, 2, 1, 3)
-    return plane.reshape(ty * TILE_H, tx * TILE_W)[:h, :w], live
+    planes, live = [], []
+    for c0, c1 in ranges:
+        acc = np.full(base.shape, -np.inf, np.float32)
+        best = np.full(base.shape, np.nan, np.float32)
+        with np.errstate(invalid="ignore"):  # the distance-0 quirk: 0 * inf
+            for c in range(c0, c1):
+                word, n, n_seg, flags, oy0, ox0, sh, sw = (int(v) for v in recs[c])
+                table = plan[word : word + sx_block._table_words(n, n_seg)]
+                soff, gp = table[:n], table[n : n + n_seg + 1]
+                inv = table[n + n_seg + 1 : n + 2 * n_seg + 1].view(np.float32)
+                windows = np.lib.stride_tricks.sliding_window_view(big, (sh, sw))
+                boxes = windows[pad + oy0 :: TILE_H, pad + ox0 :: TILE_W][:ty, :tx]
+                boxes = boxes.reshape(ty * tx, sh * sw)
+                at = (yl * sw + xl).reshape(-1)
+                assert soff.min(initial=0) >= 0 and at.max() + soff.max(initial=0) < sh * sw
+                before = acc.copy()
+                for g in range(n_seg):
+                    k, k1 = int(gp[g]), int(gp[g + 1])
+                    if g > 0 or not flags & sx_block.CARRY_IN:
+                        best = boxes[:, at + soff[k]]
+                        k += 1
+                    for kk in range(k, k1):
+                        best = np.fmax(best, boxes[:, at + soff[kk]])
+                    if flags & sx_block.CARRY_OUT and g == n_seg - 1:
+                        break
+                    acc = np.fmax(acc, (best - base) * inv[g])
+                if (acc[inside] != before[inside]).any():
+                    live.append(c)
+        plane = acc.reshape(ty, tx, TILE_H, TILE_W).transpose(0, 2, 1, 3)
+        planes.append(plane.reshape(ty * TILE_H, tx * TILE_W)[:h, :w])
+    return planes, live
+
+
+def replay(dem, plan, n_az, a, height=10.0):
+    """Azimuth ``a``'s max-ratio plane as the chunked kernel computes it from
+    ``plan``, and the chunks that set some in-grid maximum."""
+    az_chunk, _ = _parse(plan, n_az)
+    planes, live = replay_items(dem, plan, n_az, [(az_chunk[a], az_chunk[a + 1])], height)
+    return planes[0], live
+
+
+def replay_split(dem, plan, n_az, items, a, height=10.0):
+    """Azimuth ``a``'s max-ratio plane as ``sx_sweep``'s chunked route
+    computes it on a split plan: each of the azimuth's work items ``(a, c0,
+    c1, s)`` replayed alone from -inf, then the fmax over them in split
+    order (``sx_sweep_combine``)."""
+    mine = items[items[:, 0] == a]
+    np.testing.assert_array_equal(mine[:, 3], np.arange(len(mine)))
+    planes, _ = replay_items(dem, plan, n_az, [(c0, c1) for _, c0, c1, _ in mine], height)
+    out = np.full(dem.shape, -np.inf, np.float32)
+    for part in planes:
+        out = np.fmax(out, part)
+    return out
 
 
 def _twin(dem, o, d, b):
@@ -148,17 +175,26 @@ CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _case(case):
+    """(DEM, offsets, distances, border, the twin's max-ratio plane) of a
+    case of ``CASES``, computed once per test process."""
+    azimuth, radius, dy, radius_min, shape = CASES[case]
+    o, d, b = _rays(azimuth, radius, dy, radius_min)
+    dem = _dem(shape, seed=len(case))
+    return dem, o, d, b, _twin(dem, o, d, b)
+
+
 @pytest.mark.parametrize("stage", [None, SHORT_STAGE], ids=["model_stage", "short_stage"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_chunk_replay_gives_the_twins_bits(case, stage):
-    azimuth, radius, dy, radius_min, shape = CASES[case]
-    o, d, b = _rays(azimuth, radius, dy, radius_min)
+    radius, shape = CASES[case][1], CASES[case][4]
+    dem, o, d, b, twin = _case(case)
     if case.endswith("distance0"):
         assert (d == 0).any()
     plan, n_chunks, _ = sx_block.chunk_plan([sx_block.ray_groups(o, d)], stage)
-    dem = _dem(shape, seed=len(case))
     got, live = replay(dem, plan, 1, 0)
-    np.testing.assert_array_equal(_bits(got), _bits(_twin(dem, o, d, b)))
+    np.testing.assert_array_equal(_bits(got), _bits(twin))
     _, recs = _parse(plan, 1)
     if stage == SHORT_STAGE and radius >= 10_000:  # short stages split groups
         assert (recs[:, 3] & sx_block.CARRY_OUT).any()
@@ -166,6 +202,43 @@ def test_chunk_replay_gives_the_twins_bits(case, stage):
         assert live == list(range(n_chunks)) and n_chunks >= 3, (live, n_chunks)
     elif shape == (100, 150) and radius == 10_000 and stage == SHORT_STAGE:
         assert len(live) >= 3, (live, n_chunks)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, "most"])
+@pytest.mark.parametrize("stage", [None, SHORT_STAGE], ids=["model_stage", "short_stage"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_replay_gives_the_twins_bits(case, stage, splits):
+    """``sx_sweep``'s chunked route on a split plan (``split_plan`` with S
+    forced: 1, 2, 3, and one work item per group start): each work item
+    replayed alone from -inf, then the fmax over the azimuth's items, gives
+    the twin's plane bit for bit, on the model's stage and on a stage so
+    short that chunks end inside groups."""
+    dem, o, d, b, twin = _case(case)
+    plan, n_chunks, _ = sx_block.chunk_plan([sx_block.ray_groups(o, d)], stage)
+    _, recs = _parse(plan, 1)
+    starts = int(((recs[:, 3] & sx_block.CARRY_IN) == 0).sum())
+    n = n_chunks if splits == "most" else splits
+    items, per_az, _ = sx_block.split_plan(plan, 1, 1, 132, 3, n)
+    assert per_az.tolist() == [max(1, min(n, starts))] and len(items) == per_az[0]
+    np.testing.assert_array_equal(_bits(replay_split(dem, plan, 1, items, 0)), _bits(twin))
+
+
+@pytest.mark.parametrize("radius,azimuth", [(10_000, 45), (20_000, 45), (20_000, 0)])
+def test_splits_start_at_group_starts(radius, azimuth):
+    """With ``SHORT_STAGE`` some chunk boundaries fall inside distance
+    groups (chunks with ``CARRY_IN``); no work item starts at one, whatever
+    S, and the items cover the azimuth's chunks once, in order."""
+    o, d, _ = _rays(azimuth, radius)
+    plan, n_chunks, _ = sx_block.chunk_plan([sx_block.ray_groups(o, d)], SHORT_STAGE)
+    _, recs = _parse(plan, 1)
+    carry = (recs[:, 3] & sx_block.CARRY_IN) != 0
+    assert carry.any() and not carry[0]
+    for n in (2, 3, 5, 8, n_chunks):
+        items, per_az, _ = sx_block.split_plan(plan, 1, 1, 132, 3, n)
+        assert len(items) == per_az[0] == min(n, int((~carry).sum())) and per_az[0] >= 2
+        assert not carry[items[:, 1]].any()
+        assert items[0, 1] == 0 and items[-1, 2] == n_chunks
+        assert (items[1:, 1] == items[:-1, 2]).all() and (items[:, 2] > items[:, 1]).all()
 
 
 @pytest.mark.parametrize("stage", [*sx_block.CHUNK_STAGES.values(), SHORT_STAGE, 2048],
@@ -278,9 +351,14 @@ def test_fan_plan_replays_each_azimuth(dy):
     o, d, b = sx_sweep_offsets(azimuths, 10_000.0, 30.0, dy)
     o, d = sx_sweep_dedupe(o, d)
     t = sx_sweep.fan_tables(o, d, "cpu")
-    assert sx_sweep.route("sx_fan", t.fan_smem) == "chunked"
-    assert 2 * 4 * t.stage_floats <= _build.SMEM_PER_BLOCK
-    plan = t.plan.numpy()
+    assert sx_sweep.route(t.fan_smem) == "chunked"
+    assert 2 * 4 * t.fan_plan.stage_floats <= _build.SMEM_PER_BLOCK
+    plan = t.fan_plan.plan.numpy()
+    az_chunk, _ = _parse(plan, len(azimuths))  # one work item per azimuth: all its chunks
+    np.testing.assert_array_equal(t.fan_plan.items.numpy(),
+                                  [(a, az_chunk[a], az_chunk[a + 1], 0)
+                                   for a in range(len(azimuths))])
+    assert t.fan_plan.splits.tolist() == [1] * len(azimuths) and t.fan_plan.max_splits == 1
     dem = _dem((64, 96), seed=7)
     for a in range(len(azimuths)):
         real = ~np.isnan(d[a])  # the pad rows' NaN distances: dropped, as ray_groups drops them
@@ -289,6 +367,142 @@ def test_fan_plan_replays_each_azimuth(dy):
         alone, _ = replay(dem, one, 1, 0)
         np.testing.assert_array_equal(_bits(got), _bits(alone))
         np.testing.assert_array_equal(_bits(got), _bits(_twin(dem, o[a], d[a], b)))
+
+
+@pytest.mark.parametrize("dy", [30.0, -30.0], ids=["south_up", "north_up"])
+def test_sweep_plan_replays_each_azimuth(dy):
+    """The sweep's split plan of a 10 km fan (``sx_block.sweep_plan``'s
+    chunks, cut by ``split_plan`` into three work items per azimuth where
+    its group starts allow): the fmax over each azimuth's items, each
+    replayed alone, gives the twin's plane bit for bit."""
+    azimuths = (0.0, 45.0, 130.0, 300.0)
+    o, d, b = sx_sweep_offsets(azimuths, 10_000.0, 30.0, dy)
+    o, d = sx_sweep_dedupe(o, d)
+    tables = sx_sweep.azimuth_tables(*sx_sweep.sweep_tables(o, d))
+    plan, stage_floats, _, _ = sx_block.sweep_plan(tables, 6, 132)
+    items, per_az, _ = sx_block.split_plan(plan, len(azimuths), 6, 132, 3, 3)
+    az_chunk, recs = _parse(plan, len(azimuths))
+    starts = [int(((recs[c0:c1, 3] & sx_block.CARRY_IN) == 0).sum())
+              for c0, c1 in zip(az_chunk[:-1], az_chunk[1:])]
+    assert per_az.tolist() == [min(3, n) for n in starts] and (per_az >= 2).all()
+    assert 2 * 4 * stage_floats <= _build.SMEM_PER_BLOCK
+    dem = _dem((64, 96), seed=8)
+    for a in range(len(azimuths)):
+        got = replay_split(dem, plan, len(azimuths), items, a)
+        np.testing.assert_array_equal(_bits(got), _bits(_twin(dem, o[a], d[a], b)))
+
+
+AZIMUTHS36 = tuple(range(0, 360, 10))
+
+
+# (azimuths, grid, zero_border, whether the model splits): the SMs idle at
+# 10 km on 900 x 1440 (104 tiles meet the interior) for one azimuth; full
+# with 36 azimuths, at 8192^2 and without the zero border (667 tiles)
+@pytest.mark.parametrize("azimuths,shape,zero_border,split", [
+    ((45.0,), (900, 1440), True, True),
+    ((0.0, 45.0), (900, 1440), True, True),
+    (AZIMUTHS36, (900, 1440), True, False),
+    ((45.0,), (8192, 8192), True, False),
+    ((0.0, 45.0), (8192, 8192), True, False),
+    ((0.0, 45.0), (900, 1440), False, False),
+], ids=["az45_900x1440", "az0_45_900x1440", "36az_900x1440", "az45_8192", "az0_45_8192",
+        "az0_45_900x1440_nozero"])
+def test_split_plan_follows_the_grid(azimuths, shape, zero_border, split):
+    """The model's split plan at 10 km: each azimuth's work items cover its
+    chunks once, in order, each starting at a group start and numbered in
+    order; S > 1 only where the unsplit launch leaves SMs idle. With S = 1
+    everywhere the plan is the fan's (``chunk_plan``'s stage)."""
+    o, d, b = sx_sweep_offsets(azimuths, 10_000.0, 30.0, 30.0)
+    o, d = sx_sweep_dedupe(o, d)
+    tables = sx_sweep.azimuth_tables(*sx_sweep.sweep_tables(o, d))
+    tiles = sx_block.busy_tiles(shape, b, zero_border)
+    plan, _, items, per_az = sx_block.sweep_plan(tables, tiles, 132)
+    az_chunk, recs = _parse(plan, len(azimuths))
+    for a in range(len(azimuths)):
+        mine = items[items[:, 0] == a]
+        assert len(mine) == per_az[a] and (mine[:, 3] == np.arange(len(mine))).all()
+        assert mine[0, 1] == az_chunk[a] and mine[-1, 2] == az_chunk[a + 1]
+        assert (mine[1:, 1] == mine[:-1, 2]).all() and (mine[:, 2] > mine[:, 1]).all()
+        assert not (recs[mine[:, 1], 3] & sx_block.CARRY_IN).any()
+    assert (per_az.max() > 1) == split, per_az
+    if not split:
+        np.testing.assert_array_equal(plan, sx_block.chunk_plan(tables)[0])
+
+
+def test_sweep_plans_are_kept_with_the_fan_tables():
+    """The sweep's plan is built once per fan, grid shape, zero border and
+    SM count, and kept with the fan's tables in ``sx_sweep.TABLES``: a
+    second call builds and uploads nothing."""
+    sx_sweep.TABLES.clear()
+    before = sx_sweep.TABLES.builds
+    o, d, b = sx_sweep_offsets((0.0, 45.0), 10_000.0, 30.0, 30.0)
+    o, d = sx_sweep_dedupe(o, d)
+    first = sx_sweep.device_sweep_plan(o, d, b, "cpu", (900, 1440), True, 132)
+    again = sx_sweep.device_sweep_plan(o.copy(), d.copy(), b, torch.device("cpu"), (900, 1440),
+                                       True, 132)
+    t = sx_sweep.device_tables(o, d, b, "cpu")
+    assert again is first and sx_sweep.TABLES.builds == before + 1
+    assert sx_sweep.device_sweep_plan(o, d, b, "cpu", (900, 1440), True, 132, tables=t) is first
+    tables = sx_sweep.azimuth_tables(*sx_sweep.sweep_tables(o, d))
+    plan, stage_floats, items, per_az = sx_block.sweep_plan(
+        tables, sx_block.busy_tiles((900, 1440), b, True), 132)
+    np.testing.assert_array_equal(first.plan.numpy(), plan)
+    np.testing.assert_array_equal(first.items.numpy(), items)
+    assert first.stage_floats == stage_floats and first.max_splits == per_az.max() > 1
+    for args in (((900, 1400), True, 132), ((900, 1440), False, 132), ((900, 1440), True, 114)):
+        assert sx_sweep.device_sweep_plan(o, d, b, "cpu", *args) is not first
+    assert len(t.sweep_plans) == 4 and sx_sweep.TABLES.builds == before + 1
+
+
+@pytest.mark.parametrize("shape,zero_border,box", [
+    ((900, 1440), True, (320, 320, 256, 832)),  # the 104 tiles that meet the interior
+    ((678, 678), True, (320, 320, 32, 64)),  # one busy tile
+    ((678, 678), False, (0, 0, 678, 678)),
+    ((600, 601), True, (0, 0, 0, 0)),  # no tile meets the interior
+])
+def test_busy_box_holds_the_busy_tiles(shape, zero_border, box):
+    """The box of the tiles that read rays at 10 km (border 334): it holds
+    the interior, its tiles are ``busy_tiles``, and a grid without an
+    interior has none."""
+    b = 334
+    assert sx_block.busy_box(shape, b, zero_border) == box
+    y0, x0, rows, cols = box
+    assert sx_block.busy_tiles(shape, b, zero_border) == -(-rows // TILE_H) * -(-cols // TILE_W)
+    if zero_border and rows:
+        assert y0 <= b and x0 <= b and y0 + rows >= shape[0] - b and x0 + cols >= shape[1] - b
+        assert y0 % TILE_H == 0 and x0 % TILE_W == 0
+
+
+def test_split_workspace_covers_the_busy_tiles_only():
+    """Where the split plan cuts azimuths (two azimuths at 10 km on a grid
+    with one busy tile), its workspace holds S planes per azimuth of that
+    tile alone, not of the grid; a plan of one item per azimuth has none."""
+    o, d, b = sx_sweep_offsets((0.0, 45.0), 10_000.0, 30.0, 30.0)
+    o, d = sx_sweep_dedupe(o, d)
+    p = sx_sweep.device_sweep_plan(o, d, b, "cpu", (678, 678), True, 132)
+    assert p.max_splits > 1 and len(p.items) > 2
+    shape = sx_sweep.workspace_shape(p, (678, 678), b, True)
+    assert shape == (p.max_splits, 2, TILE_H, TILE_W)
+    assert 4 * np.prod(shape) <= 4 * p.max_splits * 2 * TILE_H * TILE_W
+    full = sx_sweep.device_sweep_plan(o, d, b, "cpu", (8192, 8192), True, 132)
+    assert full.max_splits == 1 and sx_sweep.workspace_shape(full, (8192, 8192), b, True) is None
+
+
+def test_sweep_at_10km_matches_jax():
+    """The port's ``ops.sx_sweep(method='pallas_sweep')`` at 10 km (the
+    sweep's chunked route on the card, the twin here) against the JAX
+    package's ``ops.sx_sweep(method='xla')`` on the 90 m grid of
+    ``test_drivers_at_10km_match_jax``, north-up as the drivers build it."""
+    data = _dem((240, 272), seed=11)
+    azimuths = [0, 45, 130, 300]
+    o, d, b = jkernels.sx_sweep_offsets(azimuths, 10_000.0, 90.0, -90.0)
+    port = tops.sx_sweep(data, o, d, b, 10.0, method="pallas_sweep", device="cpu").numpy()
+    ref = np.asarray(jops.sx_sweep(jnp.asarray(data), o, d, b, 10.0, method="xla"))
+    assert port.shape == ref.shape == (4, 240, 272) and b == 112
+    np.testing.assert_array_equal(np.isnan(port), np.isnan(ref))
+    np.testing.assert_allclose(port, ref, rtol=0, atol=JAX_ATOL)
+    interior = port[:, b:-b, b:-b]
+    assert np.isfinite(interior).all() and (interior != 0).any()
 
 
 @pytest.mark.parametrize("azimuth", [45.0, 30.0])

@@ -187,7 +187,7 @@ FAN_SIZES = {
     500.0: (1328, 1288, 13.3, (-16, 16, -16, 16), 24.0, 20.6, ("tile", "tile")),
     2000.0: (15136, 14076, 40.7, (-66, 66, -66, 66), 125.6, 228.4, ("tile", "tile")),
     10_000.0: (145136, 137764, 393.5, (-332, 332, -332, 332), 1979.2, 2210.3,
-               ("global", "chunked")),
+               ("chunked", "chunked")),
 }
 AZIMUTHS36 = tuple(range(0, 360, 10))
 
@@ -203,8 +203,9 @@ def test_fan_boxes_groups_and_routes(radius, dy):
     """The box, group and route helpers on the 36-azimuth fans: the sizes
     of the table above, the north-up grid's boxes mirrored in y, the fan
     grouped so that four of its blocks fit on an SM (one group up to
-    500 m), and the 10 km fan on the sweep's global route and the fan's
-    chunked route, whose plan only that route builds."""
+    500 m), and the 10 km fan on both kernels' chunked routes; the fan's
+    plan is built with its tables only for that route, the sweep's per grid
+    (``device_sweep_plan``)."""
     rays, groups, wedge_kib, union, union_kib, tables_kib, routes = FAN_SIZES[radius]
     route = routes[0]
     o, d, _ = _fan36(radius, dy)
@@ -218,15 +219,14 @@ def test_fan_boxes_groups_and_routes(radius, dy):
     for a, box in enumerate(t.boxes):  # each azimuth's box is sx_block's
         offs, ptr, inv = sx_block.ray_groups(o[a], d[a])
         assert tuple(box) == sx_block.halo_box(offs)
-        assert sx_block.route(box, len(offs), len(inv)) == "tile" or route == "global"
+        assert sx_block.route(box, len(offs), len(inv)) == "tile" or route == "chunked"
         oy0, oy1, ox0, ox1 = box
         assert tuple(t.sweep_boxes[a].tolist()) == (oy0, ox0, 32 + oy1 - oy0, 64 + ox1 - ox0)
     if dy < 0:
         south = sx_sweep.fan_tables(*_fan36(radius)[:2], "cpu").boxes
         np.testing.assert_array_equal(t.boxes, south[:, [1, 0, 2, 3]] * [-1, -1, 1, 1])
-    assert (sx_sweep.route("sx_sweep", t.sweep_smem),
-            sx_sweep.route("sx_fan", t.fan_smem)) == routes
-    assert (t.plan is not None) == (routes[1] == "chunked")
+    assert (sx_sweep.route(t.sweep_smem), sx_sweep.route(t.fan_smem)) == routes
+    assert (t.fan_plan is not None) == (routes[1] == "chunked")
     assert [a for g in t.groups for a in range(*g)] == list(range(36))
     if route == "tile":
         assert 4 * (t.fan_smem + 1024) <= _build.SMEM_PER_SM  # four fan blocks per SM
@@ -312,11 +312,36 @@ def test_sweep_dedupe_runs_once_per_table(dem_tiny):
     assert tsx.DEDUPED.builds == before + 2
 
 
+@pytest.mark.parametrize("azimuths,radius,shape,zero_border,method", [
+    ((45.0,), 10_000.0, (900, 1440), True, "pallas_sweep"),  # 104 busy tiles: SMs idle
+    ((0.0, 45.0), 10_000.0, (900, 1440), True, "pallas_sweep"),
+    ((0.0, 45.0), 10_000.0, (900, 1440), False, "pallas_fan"),  # 667 busy tiles
+    (AZIMUTHS36, 10_000.0, (900, 1440), True, "pallas_fan"),
+    ((45.0,), 10_000.0, (8192, 8192), True, "pallas_fan"),
+    (AZIMUTHS36, 2000.0, (900, 1440), True, "pallas_fan"),  # the tile routes
+    ((0.0, 45.0), 2000.0, (900, 1440), True, "pallas_fan"),
+])
+def test_sweep_auto_on_cuda_follows_the_idle_sms(azimuths, radius, shape, zero_border, method,
+                                                 monkeypatch):
+    """``auto`` on a CUDA tensor: the sweep where both kernels take their
+    chunked routes and the busy tiles times the azimuths leave SMs idle (a
+    short fan on a grid with few busy tiles), where its split plan can cut
+    an azimuth over several blocks; else the fan. The rule read on the CPU
+    with the card's 132 SMs, the tensor's device faked."""
+    monkeypatch.setattr(tsx, "on_cuda", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("Props", (), {"multi_processor_count": 132}))
+    o, d, b = kernels.sx_sweep_offsets(azimuths, radius, 30.0, 30.0)
+    o, d = kernels.sx_sweep_dedupe(o, d)
+    dem = torch.empty(shape)
+    assert tsx._sweep_auto_method(dem, o, d, b, zero_border) == method
+
+
 # (grid, fan kwargs, zero_border, route): a grid that is no tile multiple,
 # north-up and without the zero border; a grid smaller than the 2000 m halo;
-# the radius_min and distance-0 fans; a 10 km fan whose 45-degree box does
-# not fit in shared memory ("global": sx_sweep's global route, sx_fan's
-# chunked route)
+# the radius_min and distance-0 fans; 10 km fans whose 45-degree box does
+# not fit in shared memory (both kernels' chunked routes; azimuth 45 alone
+# on 900 x 1440 leaves SMs idle, so the sweep's plan splits it)
 ROUTE_CASES = {
     "ragged_r2000_northup_nozero": ((1000, 1337), dict(azimuths=AZIMUTHS36, radius=2000.0,
                                                        dy=-30.0), False, "tile"),
@@ -325,9 +350,11 @@ ROUTE_CASES = {
     "radius_min100": ((257, 333), dict(azimuths=(10.0, 200.0, 355.0), radius=300.0,
                                        radius_min=100.0), True, "tile"),
     "distance0": ((257, 333), dict(azimuths=(225.0, 45.0), radius=250.0), True, "tile"),
-    "global_r10000": ((400, 420), dict(azimuths=(0.0, 45.0), radius=10_000.0), True, "global"),
-    "small_global_r10000": ((50, 61), dict(azimuths=(0.0, 45.0), radius=10_000.0), True,
-                            "global"),
+    "chunked_r10000": ((400, 420), dict(azimuths=(0.0, 45.0), radius=10_000.0), True, "chunked"),
+    "small_chunked_r10000": ((50, 61), dict(azimuths=(0.0, 45.0), radius=10_000.0), True,
+                             "chunked"),
+    "chunked_r10000_az45": ((900, 1440), dict(azimuths=(45.0,), radius=10_000.0), True,
+                            "chunked"),
 }
 
 
@@ -337,12 +364,11 @@ ROUTE_CASES = {
 def test_sweep_routes_bit_equal_to_sx_block_on_cuda(kernel, case):
     """Each route of each kernel: the route the box bytes give, every plane
     within SX atol of the twin and bit-equal to sx_block on the azimuth's
-    table."""
+    table; on the sweep's chunked route, also bit-equal to its plans of one
+    work item per azimuth and of one per group start."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     shape, kw, zero_border, route = ROUTE_CASES[case]
-    if route == "global" and kernel == "sx_fan":
-        route = "chunked"
     kw = dict(kw)
     o, d, b = kernels.sx_sweep_offsets(dx=30.0, dy=kw.pop("dy", 30.0), **kw)
     o, d = kernels.sx_sweep_dedupe(o, d)
@@ -357,3 +383,13 @@ def test_sweep_routes_bit_equal_to_sx_block_on_cuda(kernel, case):
         _assert_close(out[a].cpu().numpy(), plain.cpu().numpy(), rtol=0, atol=JAX_ATOL)
         one = sx_block.sx_block(dem, o[a], d[a], b, 10.0, zero_border)
         assert torch.equal(out[a].view(torch.int32), one.view(torch.int32))
+    if (kernel, route) == ("sx_sweep", "chunked"):
+        n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+        p = sx_sweep.device_sweep_plan(o, d, b, dem.device, dem.shape, zero_border, n_sms)
+        for splits in (1, 10**6):  # S forced: one work item per azimuth, one per group start
+            items, per_az, _ = sx_block.split_plan(p.plan.cpu().numpy(), len(o), 0, n_sms, 3,
+                                                   splits)
+            forced = sx_sweep.upload_plan(p.plan.cpu().numpy(), p.stage_floats, items, per_az,
+                                          dem.device)
+            again = sx_sweep.launch_sweep_chunked(dem, forced, b, 10.0, zero_border)
+            assert torch.equal(out.view(torch.int32), again.view(torch.int32))

@@ -26,7 +26,7 @@
 //     wrapper from the signed offsets (one-sided for one azimuth, and
 //     mirrored when the grid's dy is negative), one warp per row with
 //     16-byte loads, with NaN for cells outside the grid, so the inner loop
-//     has no bounds checks and reads exactly what sx_max_ratio reads. The ray table is staged there once per
+//     has no bounds checks and reads exactly the cells sx_rays.cuh defines. The ray table is staged there once per
 //     block, each ray as one offset into the tile (its reads are
 //     broadcasts). Each thread computes 8 outputs (4 rows x 2 columns 32
 //     apart), so one table read feeds 8 fmaxes and every warp load is 32
@@ -42,7 +42,7 @@
 //     three), smaller stages cut wide fans into more chunks. At 10 km on
 //     8192^2, 11 chunks of 38.4 KB stage ~45 values per output against 3381
 //     ray reads.
-// Both routes run sx_max_ratio's operations in its order (sx_rays.cuh), so
+// Both routes run the max ratio's operations in their order (sx_rays.cuh), so
 // their planes are bit-equal to each other and to sx_sweep.cu's. The ray
 // tables are runtime data, so one build serves every radius and azimuth.
 
@@ -150,8 +150,8 @@ sx_block_chunked(const float* __restrict__ dem, const int* __restrict__ plan,
   const int x0 = blockIdx.x * kTileW;
   for (int ty = blockIdx.y; ty < tiles_y; ty += gridDim.y) {
     __syncthreads();  // the previous tile is done with both stages
-    sx_chunked::chunked_tile(dem, plan, chunks, c0, c1, stage_floats, smem, out,
-                             h, w, ty * kTileH, x0, border, height, zero_border);
+    sx_chunked::chunked_tile<false>(dem, plan, chunks, c0, c1, stage_floats, smem,
+                                    out, h, w, ty * kTileH, x0, border, height, zero_border);
   }
 }
 

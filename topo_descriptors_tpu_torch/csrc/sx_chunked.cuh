@@ -1,6 +1,8 @@
-// The chunked route of the Sx kernels (sx_block.cu, sx_fan in sx_sweep.cu):
-// one block computes one azimuth's kTileH x kTileW output tile from a ray
-// table too large for one staged halo.
+// The chunked route of the Sx kernels (sx_block.cu; sx_sweep.cu, whose
+// sx_sweep_chunked serves sx_sweep and sx_fan): one block computes one
+// azimuth's kTileH x kTileW output tile from a ray table too large for one
+// staged halo, or (sx_sweep's split plan) the maxima of one range of that
+// table's chunks.
 //
 // The TPU kernel stages the whole window of a block in VMEM and splits fans
 // over CHUNK_RAYS rays into chunks of whole distance groups, combined by an
@@ -14,10 +16,18 @@
 // (cp.async, NaN stored by plain stores for cells outside the grid) while
 // chunk c is summed. Each thread keeps its 8 outputs' running max (acc) in
 // registers over all chunks, and the running max of a group that a chunk
-// boundary splits (best) as well, so every output runs sx_max_ratio's
-// operations in its order and its plane equals the tile route's (and
-// sx_sweep's) bit for bit. One chunk is the tile route. A tile that lies
-// wholly in the zero border writes its zeros and reads no ray.
+// boundary splits (best) as well, so every output runs the max ratio's
+// operations (sx_rays.cuh) in their order and its plane equals the tile
+// route's bit for bit. One chunk is the tile route. A tile that lies wholly
+// in the zero border writes its zeros and reads no ray.
+//
+// A range of chunks that starts a distance group (its first chunk has no
+// kCarryIn) and ends one (its last has no kCarryOut) can run alone: no open
+// group crosses its ends. sx_sweep's split plan cuts an azimuth's chunks into
+// such ranges, one block each, and writes each range's maxima (kRaw) for a
+// second kernel to fold: acc starts at -inf and fmaxf drops NaN, so no
+// maximum is NaN, and the fmax over the ranges' maxima equals the one-pass
+// maximum bit for bit, whatever the order.
 //
 // Plan layout (int32 words; ops/cuda/sx_block.py::chunk_plan): n_az + 1
 // chunk pointers (azimuth a owns chunks plan[a] .. plan[a + 1] - 1), padded
@@ -72,19 +82,26 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ dem,
 }
 
 // The block's tile at (y0, x0) of one azimuth, whose chunks are c0 .. c1 - 1
-// of the plan; writes it to `out_a`. Both stages (2 x stage_floats floats of
-// `smem`) must be free: the caller's __syncthreads() says so.
+// of the plan; writes it to the (h, w) plane `out_a`: its Sx in degrees
+// with the zero border. With kRaw it writes its running maxima (-inf where
+// no candidate was valid) to a workspace plane that holds only the box
+// `ws` = (first row, first column, rows, columns) of the grid, output (y, x)
+// at (y - ws.x) * ws.w + x - ws.y, and nothing for a tile wholly in the
+// zero border. Both stages (2 x stage_floats floats of `smem`) must be
+// free: the caller's __syncthreads() says so.
+template <bool kRaw>
 __device__ __forceinline__ void chunked_tile(
     const float* __restrict__ dem, const int* __restrict__ plan,
     const Chunk* chunks, int c0, int c1, int stage_floats, float* smem,
     float* __restrict__ out_a, int h, int w, int y0, int x0, int border,
-    float height, int zero_border) {
+    float height, int zero_border, int4 ws = make_int4(0, 0, 0, 0)) {
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
   if (zero_border && (y0 + kTileH <= border || y0 >= h - border ||
                       x0 + kTileW <= border || x0 >= w - border)) {
     // the whole tile lies in the zero border (86% of the 900 x 1440 grid at
     // 10 km): its outputs are 0 whatever the rays read
+    if (kRaw) return;  // the folding kernel writes them
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
 #pragma unroll
@@ -151,10 +168,14 @@ __device__ __forceinline__ void chunked_tile(
       const int y = y0 + warp + j * kThreadsY;
       const int x = x0 + lane + c * kThreadsX;
       if (y >= h || x >= w) continue;
-      out_a[static_cast<int64_t>(y) * w + x] =
-          (zero_border && !sx_interior(y, x, h, w, border))
-              ? 0.0f
-              : sx_degrees(acc[j * kCols + c]);
+      if (kRaw) {
+        out_a[static_cast<int64_t>(y - ws.x) * ws.w + x - ws.y] = acc[j * kCols + c];
+      } else {
+        out_a[static_cast<int64_t>(y) * w + x] =
+            (zero_border && !sx_interior(y, x, h, w, border))
+                ? 0.0f
+                : sx_degrees(acc[j * kCols + c]);
+      }
     }
   }
 }

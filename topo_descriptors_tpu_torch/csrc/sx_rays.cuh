@@ -4,9 +4,15 @@
 // One azimuth's rays are grouped by identical 1/distance: `offsets` holds
 // (oy, ox) pairs ordered by group, group g owns pairs
 // group_ptr[g] .. group_ptr[g + 1] - 1 and has reciprocal distance inv[g].
-// Every kernel reads its azimuth's groups g0 .. g1 - 1 through these
-// functions, so all of them run the same operations in the same order and
-// their outputs agree bit for bit.
+// The max ratio of pixel (y, x), with base = dem[y, x] + height, is
+//   acc = -inf; for g in order:
+//     best = NaN; for k in group g, in order:
+//       best = fmaxf(best, dem[y + oy_k, x + ox_k])   (NaN outside the grid)
+//     acc = fmaxf(acc, (best - base) * inv[g])
+// so -inf when no candidate is valid (no rays, or every read or ratio NaN),
+// and never NaN. Every kernel computes it through these functions, so all
+// of them run the same operations in the same order and their outputs agree
+// bit for bit.
 //
 // Grouping is exact: rounding of (s - base) and of the product by inv >= 0
 // is monotonic, and the inv = +inf distance-0 quirk gives +-inf or a
@@ -18,34 +24,11 @@
 #include <math.h>
 #include <stdint.h>
 
-// max over groups g of (max_{k in g} dem[y + oy_k, x + ox_k] - base) * inv[g];
-// reads outside the grid count as NaN, which fmaxf drops. -inf when no
-// candidate is valid (no rays, or every read or ratio NaN).
-static __device__ __forceinline__ float sx_max_ratio(
-    const float* __restrict__ dem, const int* __restrict__ offsets,
-    const int* __restrict__ group_ptr, const float* __restrict__ inv, int g0,
-    int g1, int h, int w, int y, int x, float base) {
-  float acc = -INFINITY;
-  for (int g = g0; g < g1; ++g) {
-    float best = NAN;
-    for (int k = group_ptr[g]; k < group_ptr[g + 1]; ++k) {
-      const int yy = y + offsets[2 * k];
-      const int xx = x + offsets[2 * k + 1];
-      const float v = (yy >= 0 && yy < h && xx >= 0 && xx < w)
-                          ? dem[static_cast<int64_t>(yy) * w + xx]
-                          : NAN;
-      best = fmaxf(best, v);
-    }
-    acc = fmaxf(acc, (best - base) * inv[g]);
-  }
-  return acc;
-}
-
-// The shared-memory variant of sx_max_ratio over a run of groups, for kR
-// pixels of one thread at once (the halo tiles and chunks of sx_block.cu,
-// sx_sweep.cu and sx_chunked.cuh). `tile` holds the DEM around the block
-// with NaN outside the grid, so pixel r reads tile[at[r] + soff[k]] where
-// sx_max_ratio reads dem[y + oy_k, x + ox_k] (or NaN). The run has n_seg
+// The max ratio over a run of groups, for kR pixels of one thread at once
+// (the halo tiles and chunks of sx_block.cu, sx_sweep.cu and
+// sx_chunked.cuh). `tile` holds the DEM around the block with NaN outside
+// the grid, so pixel r reads tile[at[r] + soff[k]] where the definition
+// above reads dem[y + oy_k, x + ox_k] (or NaN). The run has n_seg
 // segments: segment g owns rays group_ptr[g] .. group_ptr[g + 1] - 1 and
 // has reciprocal distance inv[g]. A segment is a whole group, or the part
 // of a group that a chunk of the chunked route holds: with `carry_in`
@@ -55,8 +38,8 @@ static __device__ __forceinline__ float sx_max_ratio(
 // starts from a group's first ray instead of NaN, which saves one fmax per
 // group (most groups hold a single ray): every group holds at least one
 // ray (ray_groups), and fmaxf(NaN, v) is v. So each pixel sees the values
-// of sx_max_ratio in the same order, across chunks too, and the two agree
-// bit for bit.
+// of the definition above in the same order, across chunks too, and the two
+// agree bit for bit.
 template <int kR>
 static __device__ __forceinline__ void sx_max_ratio_run(
     const float* tile, const int* soff, const int* group_ptr, const float* inv,

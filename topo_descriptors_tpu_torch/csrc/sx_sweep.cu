@@ -9,7 +9,9 @@
 //
 // * sx_sweep replaces topo_descriptors_tpu/ops/pallas/sx_block.py::
 //   _sx_sweep_kernel (runtime tables, grid (gy, gx, A)) with the epilogue of
-//   sx_sweep_pallas (sx_block.py:566-574): one azimuth per block.
+//   sx_sweep_pallas (sx_block.py:566-574): one azimuth per block (tile
+//   route), or one range of an azimuth's distance bands per block (chunked
+//   route).
 // * sx_fan replaces _sx_fan_kernel (one halo window read once for every
 //   azimuth of a group) with the epilogue of sx_fan_pallas
 //   (sx_block.py:446-455): one group of azimuths per block (tile route), or
@@ -54,19 +56,30 @@
 //     Both tile kernels are held to 64 registers, so that four blocks of
 //     256 threads fit on an SM; with more registers and fewer blocks both
 //     measured slower.
-//   * GLOBAL (sx_sweep only, a box above 227 KB, e.g. the 10 km fan): the
-//     first design, kept as it was. sx_sweep_kernel has one thread per
-//     (pixel, azimuth), the azimuth on the grid's z axis, reading every ray
-//     through L1/L2 with sx_max_ratio's bounds checks.
-//   * CHUNKED (sx_fan, a box above 227 KB): block = (output tile, azimuth),
-//     the azimuth fastest as in sx_sweep_tile, so a tile's blocks find its
-//     DEM in L2. Each block runs sx_block's chunked route on its azimuth's
-//     plan (sx_chunked.cuh): the rays stream through two shared-memory
-//     stages one distance band at a time, the running maxima kept in
-//     registers. A block per group of azimuths could stage one union box per
-//     band for the group, but staging is ~1% of the work at 10 km (~45
-//     staged values per output and azimuth against 3381-4420 ray reads),
-//     so it could save little, at the price of a group's accumulators.
+//   * CHUNKED (a box above 227 KB, e.g. the 10 km fan), one kernel for
+//     both: sx_sweep_chunked, block = (output tile, work item), the item
+//     fastest as in sx_sweep_tile, so a tile's blocks find its DEM in L2. A
+//     work item is a range of one azimuth's chunks of the host plan
+//     (ops/cuda/sx_block.py::chunk_plan) that starts and ends distance
+//     groups; its block runs sx_block's chunked route over that range
+//     (sx_chunked.cuh): the rays stream through two shared-memory stages one
+//     distance band at a time, the running maxima kept in registers.
+//     - sx_fan: one item per azimuth, its planes written directly. A block
+//       per group of azimuths could stage one union box per band for the
+//       group, but staging is ~1% of the work at 10 km (~45 staged values
+//       per output and azimuth against 3381-4420 ray reads), so it could
+//       save little, at the price of a group's accumulators.
+//     - sx_sweep: the items of the host's split plan
+//       (ops/cuda/sx_block.py::split_plan). Where the grid leaves SMs idle
+//       (one or two azimuths at 10 km on 900 x 1440: 104 tiles read rays,
+//       so one lone block on each of 104 of the 132 SMs, at half the per-SM
+//       rate of three blocks), the plan cuts an azimuth's chunks into S
+//       ranges, so S blocks share its tile; each writes its maxima to a
+//       workspace plane that holds only the box of the tiles that read rays
+//       (ops/cuda/sx_sweep.py::workspace_shape), and sx_sweep_combine folds
+//       the S planes (an exact fmax, sx_chunked.cuh), takes the atan and
+//       zeroes the border. With S = 1 for every azimuth (a grid that fills
+//       the SMs: the 36-azimuth fan, 8192^2) it runs as sx_fan does.
 // Output indices are 64-bit (36 x 8192^2 > 2^31), and every grid loops, so
 // any size works. The TPU kernels' Mosaic workarounds (the (column, oy mod
 // 8) CSR, the FAN_RAY_BUDGET groups, (8, 128) window rounding,
@@ -90,34 +103,8 @@ constexpr int kRows = kTileH / kThreadsY;  // 4
 constexpr int kOut = kRows * kCols;        // outputs per thread
 constexpr int kBlocksPerSm = 4;            // 64 registers per thread at most
 constexpr int64_t kMaxGrid = 1 << 30;      // blocks per launch; larger grids loop
-
-__global__ void sx_sweep_kernel(const float* __restrict__ dem,
-                                const int* __restrict__ offsets,
-                                const int* __restrict__ group_ptr,
-                                const float* __restrict__ inv,
-                                const int* __restrict__ az_ptr, int n_az,
-                                float* __restrict__ out, int h, int w,
-                                int border, float height, int zero_border) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w) return;
-  const int64_t plane = static_cast<int64_t>(h) * w;
-  for (int a = blockIdx.z; a < n_az; a += gridDim.z) {
-    const int g0 = az_ptr[a];
-    const int g1 = az_ptr[a + 1];
-    float* __restrict__ out_a = out + a * plane;
-    for (int y = blockIdx.y * blockDim.y + threadIdx.y; y < h;
-         y += gridDim.y * blockDim.y) {
-      const int64_t idx = static_cast<int64_t>(y) * w + x;
-      if (zero_border && !sx_interior(y, x, h, w, border)) {
-        out_a[idx] = 0.0f;
-        continue;
-      }
-      const float base = dem[idx] + height;
-      out_a[idx] = sx_degrees(sx_max_ratio(dem, offsets, group_ptr, inv, g0,
-                                           g1, h, w, y, x, base));
-    }
-  }
-}
+constexpr int kCombineThreads = 256;
+constexpr int64_t kCombineGrid = 4096;     // sx_sweep_combine's blocks at most; they loop
 
 // Stages DEM rows y0 + oy0 .. y0 + oy0 + sh - 1, columns x0 + ox0 ..
 // x0 + ox0 + sw - 1 into tile (row stride sw), NaN outside the grid.
@@ -283,33 +270,6 @@ sx_fan_tile(const float* __restrict__ dem, const int* __restrict__ soff,
   }
 }
 
-// Fan chunked route. Block index b = tile * n_az + a: azimuth a's plane of
-// the tile, from azimuth a's chunks of the plan (sx_chunked.cuh).
-__global__ void __launch_bounds__(kThreads)
-sx_fan_chunked(const float* __restrict__ dem, const int* __restrict__ plan,
-               int n_az, int stage_floats, float* __restrict__ out, int h,
-               int w, int border, float height, int zero_border, int tiles_x,
-               int64_t n_blocks) {
-  extern __shared__ __align__(16) float smem[];
-  const sx_chunked::Chunk* chunks = sx_chunked::chunks_of(plan, n_az);
-  const int64_t plane = static_cast<int64_t>(h) * w;
-  for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {
-    const int a = static_cast<int>(b % n_az);
-    const int64_t t = b / n_az;
-    __syncthreads();  // the previous block is done with both stages
-    sx_chunked::chunked_tile(dem, plan, chunks, __ldg(&plan[a]), __ldg(&plan[a + 1]),
-                             stage_floats, smem, out + a * plane, h, w,
-                             static_cast<int>(t / tiles_x) * kTileH,
-                             static_cast<int>(t % tiles_x) * kTileW, border,
-                             height, zero_border);
-  }
-}
-
-dim3 pixel_grid(int h, int w, dim3 threads) {
-  const int gy = (h + threads.y - 1) / threads.y;
-  return dim3((w + threads.x - 1) / threads.x, gy < 65535 ? gy : 65535);
-}
-
 // Sets the kernel's dynamic shared memory limit where it exceeds the
 // default 48 KB; then launches a 1-D grid of kThreadsX x kThreadsY blocks
 // over n_blocks block indices.
@@ -327,24 +287,68 @@ int launch_tiles(Kernel kernel, int64_t n_blocks, int smem_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Global route of sx_sweep. Returns cudaGetLastError().
-extern "C" int sx_sweep_forward(const float* dem, const int* offsets,
-                                const int* group_ptr, const float* inv,
-                                const int* az_ptr, int n_az, float* out, int h,
-                                int w, int border, float height,
-                                int zero_border, cudaStream_t stream) {
-  if (h > 0 && w > 0 && n_az > 0) {
-    const dim3 threads(64, 4);
-    dim3 grid = pixel_grid(h, w, threads);
-    grid.z = n_az < 65535 ? n_az : 65535;
-    sx_sweep_kernel<<<grid, threads, 0, stream>>>(
-        dem, offsets, group_ptr, inv, az_ptr, n_az, out, h, w, border, height,
-        zero_border);
+// Chunked route. Block index b = tile * n_items + i: work item i,
+// items[i] = (azimuth a, first chunk c0, end chunk c1, split s). Without
+// kRaw (one item per azimuth) the block writes azimuth a's plane of `out`;
+// with kRaw its running maxima to plane s * n_az + a of the workspace
+// `out`, whose planes hold the box `ws` of the grid (chunked_tile), for
+// sx_sweep_combine.
+template <bool kRaw>
+__global__ void __launch_bounds__(kThreads)
+sx_sweep_chunked(const float* __restrict__ dem, const int* __restrict__ plan,
+                 const int4* __restrict__ items, int n_items, int n_az,
+                 int stage_floats, float* __restrict__ out, int4 ws, int h,
+                 int w, int border, float height, int zero_border, int tiles_x,
+                 int64_t n_blocks) {
+  extern __shared__ __align__(16) float smem[];
+  const sx_chunked::Chunk* chunks = sx_chunked::chunks_of(plan, n_az);
+  const int64_t plane = kRaw ? static_cast<int64_t>(ws.z) * ws.w
+                             : static_cast<int64_t>(h) * w;
+  for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const int4 item = __ldg(&items[b % n_items]);
+    const int64_t t = b / n_items;
+    __syncthreads();  // the previous block is done with both stages
+    sx_chunked::chunked_tile<kRaw>(
+        dem, plan, chunks, item.y, item.z, stage_floats, smem,
+        out + (static_cast<int64_t>(item.w) * n_az + item.x) * plane, h, w,
+        static_cast<int>(t / tiles_x) * kTileH,
+        static_cast<int>(t % tiles_x) * kTileW, border, height, zero_border,
+        ws);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// The split plan's fold: out[a, y, x] is the Sx of the fmax, from -inf and
+// in split order, of workspace planes s * n_az + a, s < splits[a], at (y, x)
+// of their box `ws`; 0 in the zero border, which holds every output outside
+// the box and whose wholly-border tiles left the workspace unwritten.
+__global__ void __launch_bounds__(kCombineThreads)
+sx_sweep_combine(const float* __restrict__ wsp, const int* __restrict__ splits,
+                 int n_az, int4 ws, float* __restrict__ out, int h, int w,
+                 int border, int zero_border) {
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t box = static_cast<int64_t>(ws.z) * ws.w;
+  const int64_t total = plane * n_az;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int a = static_cast<int>(i / plane);
+    const int64_t p = i - a * plane;
+    const int y = static_cast<int>(p / w);
+    const int x = static_cast<int>(p - static_cast<int64_t>(y) * w);
+    if (zero_border && !sx_interior(y, x, h, w, border)) {
+      out[i] = 0.0f;
+      continue;
+    }
+    const int64_t q = static_cast<int64_t>(y - ws.x) * ws.w + x - ws.y;
+    float m = -INFINITY;
+    const int n = __ldg(&splits[a]);
+    for (int s = 0; s < n; ++s) {
+      m = fmaxf(m, wsp[(static_cast<int64_t>(s) * n_az + a) * box + q]);
+    }
+    out[i] = sx_degrees(m);
+  }
+}
+
+}  // namespace
 
 // Tile routes, with the per-azimuth boxes (sweep) or the azimuth groups
 // and the table buffers' size (fan), and `smem_bytes` of dynamic shared
@@ -384,24 +388,45 @@ extern "C" int sx_fan_tile_forward(const float* dem, const int* soff,
                       height, zero_border, tiles_x, n_blocks, vec, table_words);
 }
 
-// Chunked route of sx_fan, with the plan of its n_az azimuths and their
-// stage size from the wrapper (ops/cuda/sx_block.py::chunk_plan). Returns
+// Chunked route of both kernels, with the plan of its n_az azimuths and its
+// stage size (ops/cuda/sx_block.py::chunk_plan) and n_items work items, four
+// ints each, 16-byte aligned (split_plan), from the wrapper. `splits` is
+// null where every azimuth is one item: the blocks then write `out`. Else
+// it holds each azimuth's items, the blocks write their maxima to the
+// workspace `ws`, (max items, n_az, ws_h, ws_w) floats over rows ws_y0 ..
+// and columns ws_x0 .. of the grid (every tile that reads rays lies
+// there), and a second kernel folds it into `out`. Returns
 // cudaGetLastError(), or the error of raising the shared-memory limit.
-extern "C" int sx_fan_chunked_forward(const float* dem, const int* plan,
-                                      int n_az, int stage_floats, float* out,
-                                      int h, int w, int border, float height,
-                                      int zero_border, cudaStream_t stream) {
+extern "C" int sx_sweep_chunked_forward(const float* dem, const int* plan,
+                                        const int* items, int n_items, int n_az,
+                                        int stage_floats, float* out, float* ws,
+                                        const int* splits, int ws_y0, int ws_x0,
+                                        int ws_h, int ws_w, int h, int w,
+                                        int border, float height,
+                                        int zero_border, cudaStream_t stream) {
   if (h <= 0 || w <= 0 || n_az <= 0) return 0;
-  const int err = sx_chunked::set_stage_smem(sx_fan_chunked, stage_floats);
+  if (n_items < n_az) return static_cast<int>(cudaErrorInvalidValue);
+  const bool raw = splits != nullptr;
+  const auto kernel = raw ? &sx_sweep_chunked<true> : &sx_sweep_chunked<false>;
+  const int err = sx_chunked::set_stage_smem(kernel, stage_floats);
   if (err != 0) return err;
   const int tiles_x = (w + kTileW - 1) / kTileW;
   const int64_t n_blocks =
-      static_cast<int64_t>((h + kTileH - 1) / kTileH) * tiles_x * n_az;
+      static_cast<int64_t>((h + kTileH - 1) / kTileH) * tiles_x * n_items;
   const unsigned grid =
       static_cast<unsigned>(n_blocks < kMaxGrid ? n_blocks : kMaxGrid);
   const int smem_bytes = 2 * stage_floats * static_cast<int>(sizeof(float));
-  sx_fan_chunked<<<grid, dim3(kThreadsX, kThreadsY), smem_bytes, stream>>>(
-      dem, plan, n_az, stage_floats, out, h, w, border, height, zero_border,
+  const int4 box = make_int4(ws_y0, ws_x0, ws_h, ws_w);
+  kernel<<<grid, dim3(kThreadsX, kThreadsY), smem_bytes, stream>>>(
+      dem, plan, reinterpret_cast<const int4*>(items), n_items, n_az,
+      stage_floats, raw ? ws : out, box, h, w, border, height, zero_border,
       tiles_x, n_blocks);
+  const cudaError_t launched = cudaGetLastError();
+  if (!raw || launched != cudaSuccess) return static_cast<int>(launched);
+  const int64_t outputs = static_cast<int64_t>(h) * w * n_az;
+  const int64_t blocks = (outputs + kCombineThreads - 1) / kCombineThreads;
+  sx_sweep_combine<<<static_cast<unsigned>(blocks < kCombineGrid ? blocks : kCombineGrid),
+                     kCombineThreads, 0, stream>>>(ws, splits, n_az, box, out, h, w,
+                                                   border, zero_border);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,15 +53,14 @@ _SIGNATURES = {
     # dem, plan, n_az, stage_floats, out, h, w, border, height, zero_border,
     # stream
     "sx_block_chunked_forward": (_P, _P, _I, _I, _P, _I, _I, _I, ctypes.c_float, _I, _P),
-    "sx_fan_chunked_forward": (_P, _P, _I, _I, _P, _I, _I, _I, ctypes.c_float, _I, _P),
     # dem, offsets, group_ptr, inv, n_rays, n_groups, out, h, w, oy0, ox0,
     # sh, sw, border, height, zero_border, smem_bytes, vec, stream
     "sx_block_tile_forward": (_P, _P, _P, _P, _I, _I, _P) + (_I,) * 7
                              + (ctypes.c_float, _I, _I, _I, _P),
-    # dem, offsets, group_ptr, inv, az_ptr, n_az, out, h, w, border, height,
-    # zero_border, stream
-    "sx_sweep_forward": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                         ctypes.c_float, _I, _P),
+    # dem, plan, items, n_items, n_az, stage_floats, out, ws, splits, ws_y0,
+    # ws_x0, ws_h, ws_w, h, w, border, height, zero_border, stream
+    "sx_sweep_chunked_forward": (_P, _P, _P, _I, _I, _I, _P, _P, _P) + (_I,) * 7
+                                + (ctypes.c_float, _I, _P),
     # dem, offsets, group_ptr, inv, az_ptr, boxes, n_az, out, h, w, border,
     # height, zero_border, smem_bytes, vec, stream
     "sx_sweep_tile_forward": (_P,) * 6 + (_I, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P),

@@ -10,6 +10,9 @@ shared-memory stages, one band of distance groups at a time, from the
 host plan :func:`chunk_plan` (the counterpart of the TPU kernel's
 ``CHUNK_RAYS`` chunks of whole distance groups). :func:`route` chooses
 between them from the halo's bytes and the shared-memory limit alone.
+:func:`split_plan` cuts such a plan's azimuths into work items for
+``sx_sweep``'s chunked route, so that a grid that leaves SMs idle gets
+several blocks per tile and azimuth.
 :func:`sx_block_plain` is the same function in plain PyTorch — the
 transcription of the XLA scan in ``topo_descriptors_tpu/ops/sx.py``: a
 NaN-padded DEM and one ``torch.fmax`` pass per ray offset.
@@ -49,6 +52,11 @@ CHUNK_COST_RAYS = 22
 # a chunk record's flags: its first segment goes on with the group the
 # previous chunk left open; its last segment's group goes on in the next
 CARRY_IN, CARRY_OUT = 1, 2
+# the split plan (sx_sweep's chunked route, :func:`split_plan`): the cost of
+# a work item that shares its azimuth's chunks with others, in ray reads per
+# output (its first stage fills before any sum hides it, and its maxima go
+# through the workspace and the fold), taken as one more chunk's
+SPLIT_COST_RAYS = CHUNK_COST_RAYS
 
 
 def _inv_distances(distances) -> np.ndarray:
@@ -216,18 +224,150 @@ def chunk_plan(tables, stage_bytes: int = None, max_blocks: int = None):
     return plan, n_chunks, stage_floats
 
 
-def busy_blocks_per_sm(shape, border, zero_border, n_sms: int) -> int:
-    """Blocks per SM that the chunked route's launch on an (H, W) grid can
-    keep busy, up to the most ``CHUNK_STAGES`` offers: its tiles that read
-    rays (with the zero border, the tiles that meet the interior; the
-    others only write zeros) over the SMs."""
+def busy_box(shape, border, zero_border) -> tuple:
+    """``(first row, first column, rows, columns)`` of the box of the chunked
+    route's output tiles on an (H, W) grid that read rays, clipped to the
+    grid: with the zero border, the tiles that meet the interior (the others
+    only write zeros; no rows or columns where there is no interior);
+    without it, the grid."""
     h, w = shape
+    if not zero_border:
+        return 0, 0, int(h), int(w)
     y0 = np.arange(-(-h // TILE_H)) * TILE_H
     x0 = np.arange(-(-w // TILE_W)) * TILE_W
-    if zero_border:
-        y0 = y0[(y0 + TILE_H > border) & (y0 < h - border)]
-        x0 = x0[(x0 + TILE_W > border) & (x0 < w - border)]
-    return int(min(max(-(-len(y0) * len(x0) // n_sms), 1), max(CHUNK_STAGES)))
+    y0 = y0[(y0 + TILE_H > border) & (y0 < h - border)]
+    x0 = x0[(x0 + TILE_W > border) & (x0 < w - border)]
+    if not len(y0) or not len(x0):
+        return 0, 0, 0, 0
+    return (int(y0[0]), int(x0[0]), int(min(h, y0[-1] + TILE_H) - y0[0]),
+            int(min(w, x0[-1] + TILE_W) - x0[0]))
+
+
+def busy_tiles(shape, border, zero_border) -> int:
+    """The chunked route's output tiles on an (H, W) grid that read rays:
+    those of :func:`busy_box`."""
+    _, _, rows, cols = busy_box(shape, border, zero_border)
+    return -(-rows // TILE_H) * -(-cols // TILE_W)
+
+
+def busy_blocks_per_sm(shape, border, zero_border, n_sms: int) -> int:
+    """Blocks per SM that the chunked route's launch on an (H, W) grid can
+    keep busy, up to the most ``CHUNK_STAGES`` offers: its
+    :func:`busy_tiles` over the SMs."""
+    tiles = busy_tiles(shape, border, zero_border)
+    return int(min(max(-(-tiles // n_sms), 1), max(CHUNK_STAGES)))
+
+
+def _records(plan, n_az: int) -> np.ndarray:
+    """The (n_chunks, 8) chunk records of a :func:`chunk_plan`."""
+    head = -(-(n_az + 1) // 4) * 4
+    return np.asarray(plan[head : head + 8 * int(plan[n_az])]).reshape(-1, 8)
+
+
+def _chunk_costs(records) -> np.ndarray:
+    """Each chunk's work per output in ray reads, the cost model's unit:
+    its rays, its staged values and ``CHUNK_COST_RAYS``."""
+    records = np.asarray(records, np.int64).reshape(-1, 8)
+    return records[:, 1] + records[:, 6] * records[:, 7] / (TILE_H * TILE_W) + CHUNK_COST_RAYS
+
+
+def _split_cuts(starts, prefix, n_splits: int) -> list:
+    """Where ``n_splits`` work items of one azimuth begin: its first chunk
+    ``starts[0]``, then ``n_splits - 1`` of the later group starts
+    ``starts[1:]``, each the one whose cost before it (``prefix``, over the
+    plan's chunks) comes nearest to its share of the azimuth's cost."""
+    cuts, lo = [int(starts[0])], 1
+    first, total = prefix[starts[0]], prefix[-1] - prefix[starts[0]]
+    for j in range(1, n_splits):
+        hi = len(starts) - (n_splits - 1 - j)  # leave a start for each later cut
+        gap = np.abs(prefix[starts[lo:hi]] - (first + j * total / n_splits))
+        i = lo + int(np.argmin(gap))
+        cuts.append(int(starts[i]))
+        lo = i + 1
+    return cuts
+
+
+def split_plan(plan, n_az: int, tiles: int, n_sms: int, blocks_per_sm: int, splits: int = None):
+    """The work items of ``sx_sweep``'s chunked route on a :func:`chunk_plan`
+    of ``n_az`` azimuths whose stage fits ``blocks_per_sm`` blocks on an SM,
+    for a launch whose grid has ``tiles`` :func:`busy_tiles` on ``n_sms``
+    SMs. A work item is a range of one azimuth's chunks that begins at a
+    chunk without ``CARRY_IN`` (a group start) and ends where the next item
+    begins, so no open group crosses it; the kernel runs one block per
+    (tile, item), and folds an azimuth's items by an fmax.
+
+    With ``splits=None`` the model splits only where the grid leaves SMs
+    idle: ``tiles`` x ``n_az`` blocks under ``blocks_per_sm`` per SM. There
+    it tries S = 1, 2, ... items per azimuth, as many as the azimuth's group
+    starts allow, and keeps the S of the least time, the smallest on a tie.
+    (On the card, items of one or two chunks were the fastest at 10 km,
+    where a chunk holds hundreds of rays: ``chip_smoke.py::tune_split``.)
+    The model's time of a launch,
+    in ray reads per output: in one wave, the costliest item times the
+    blocks k of the fullest SM over ``STAGE_SPEED[k]``; in more, all items'
+    work over the SMs at ``STAGE_SPEED[blocks_per_sm]``, plus half the
+    costliest item at that rate (the last wave's tail). An item's cost is
+    its chunks' (:func:`_chunk_costs`), plus ``SPLIT_COST_RAYS`` where the
+    plan splits. With ``splits`` an int, every azimuth is cut into
+    ``min(splits, its group starts)`` items.
+
+    Returns ``(items (M, 4) int32: azimuth, first chunk, end chunk, item's
+    index in its azimuth; splits (n_az,) int32: each azimuth's items; the
+    model's time)``."""
+    az_chunk = np.asarray(plan[: n_az + 1], np.int64)
+    recs = _records(plan, n_az)
+    prefix = np.concatenate([[0.0], np.cumsum(_chunk_costs(recs))])
+    starts = [np.flatnonzero((recs[c0:c1, 3] & CARRY_IN) == 0) + c0
+              for c0, c1 in zip(az_chunk[:-1], az_chunk[1:])]
+    capacity = blocks_per_sm * n_sms
+
+    def items_of(per_az):
+        items = []
+        for a, (n, c1) in enumerate(zip(per_az, az_chunk[1:])):
+            cuts = _split_cuts(starts[a], prefix, n) if len(starts[a]) else [int(c1)]
+            items += [(a, c, e, s) for s, (c, e) in enumerate(zip(cuts, cuts[1:] + [int(c1)]))]
+        return items
+
+    def cost(items):
+        extra = SPLIT_COST_RAYS if len(items) > n_az else 0.0
+        return np.array([prefix[e] - prefix[c] + extra for _, c, e, _ in items])
+
+    def model_time(items):
+        blocks, c = tiles * len(items), cost(items)
+        if blocks == 0:  # no tile reads a ray
+            return 0.0
+        if blocks <= capacity:
+            k = -(-blocks // n_sms)
+            return c.max() * k / STAGE_SPEED[k]
+        speed = STAGE_SPEED[blocks_per_sm]
+        return tiles * c.sum() / (n_sms * speed) + c.max() * blocks_per_sm / (2 * speed)
+
+    if splits is not None:
+        per_az = [max(1, min(int(splits), len(st))) for st in starts]
+    else:
+        most = [max(1, len(st)) for st in starts]
+        tries = range(1, max(most, default=1) + 1) if 0 < tiles * n_az < capacity else [1]
+        per_az = min(([min(n, m) for m in most] for n in tries),
+                     key=lambda p: model_time(items_of(p)))
+    items = items_of(per_az)
+    return (np.asarray(items, np.int32).reshape(-1, 4), np.asarray(per_az, np.int32),
+            model_time(items))
+
+
+def sweep_plan(tables, tiles: int, n_sms: int):
+    """``sx_sweep``'s chunked route for a fan given as per-azimuth
+    :func:`ray_groups` tables on a grid of ``tiles`` :func:`busy_tiles`: the
+    :func:`chunk_plan` at the stage of ``CHUNK_STAGES`` whose
+    :func:`split_plan` the model finds fastest, the largest stage on a tie.
+
+    Returns ``(plan, stage_floats, items, splits per azimuth)``."""
+    best = None
+    for n, stage in CHUNK_STAGES.items():
+        plan, _, stage_floats, _ = _chunk_plan(tables, stage)
+        items, per_az, t = split_plan(plan, len(tables), tiles, n_sms, n)
+        if best is None or t < best[0]:
+            best = (t, plan, stage_floats, items, per_az)
+    return best[1:]
 
 
 def _chunk_plan(tables, stage_bytes: int):
@@ -261,7 +401,7 @@ def _chunk_plan(tables, stage_bytes: int):
     stage = max((len(t) + r[6] * r[7] for r, t in zip(records, parts)), default=0)
     plan = np.concatenate([np.asarray(az_chunk + [0] * (head - n_az - 1), np.int32),
                            np.asarray(records, np.int32).reshape(-1), *parts]).astype(np.int32)
-    reads = sum(r[1] + r[6] * r[7] / (TILE_H * TILE_W) + CHUNK_COST_RAYS for r in records)
+    reads = float(_chunk_costs(records).sum())
     return plan, len(records), -(-stage // 4) * 4, reads
 
 
@@ -300,19 +440,6 @@ def device_plan(offsets, distances, border, device, stage_bytes: int = None,
     return TABLES.get(key, build)
 
 
-def launch_chunked(entry: str, dem, plan, n_az: int, stage_floats: int, out, border, height,
-                   zero_border) -> int:
-    """Launches the chunked route's kernel ``entry`` (``sx_block_chunked_forward``
-    or ``sx_fan_chunked_forward``) on the current stream; returns its CUDA
-    error code."""
-    h, w = dem.shape
-    with torch.cuda.device(dem.device):
-        return getattr(_build.library(), entry)(
-            dem.data_ptr(), plan.data_ptr(), n_az, stage_floats, out.data_ptr(), h, w,
-            int(border), float(height), int(bool(zero_border)),
-            torch.cuda.current_stream().cuda_stream)
-
-
 def sx_block_chunked(dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
                      zero_border: bool = True,
                      stage_bytes: int = None) -> torch.Tensor:
@@ -328,9 +455,13 @@ def sx_block_chunked(dem: torch.Tensor, offsets, distances, border: int, height:
         max_blocks = busy_blocks_per_sm(dem.shape, border, zero_border, n_sms)
     plan, _, stage_floats = device_plan(offsets, distances, border, dem.device, stage_bytes,
                                         max_blocks)
-    out = torch.empty(dem.shape, dtype=torch.float32, device=dem.device)
-    err = launch_chunked("sx_block_chunked_forward", dem, plan, 1, stage_floats, out, border,
-                         height, zero_border)
+    h, w = dem.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=dem.device)
+    with torch.cuda.device(dem.device):
+        err = _build.library().sx_block_chunked_forward(
+            dem.data_ptr(), plan.data_ptr(), 1, stage_floats, out.data_ptr(), h, w,
+            int(border), float(height), int(bool(zero_border)),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sx_block (chunked)")
     LAUNCHES += 1
     ROUTE_LAUNCHES["chunked"] += 1

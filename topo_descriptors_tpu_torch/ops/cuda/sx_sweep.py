@@ -8,10 +8,13 @@ kernels are in ``csrc/sx_sweep.cu``, whose header says what bounds them on
 the H100 and what their two routes do about it: ``"tile"`` stages the DEM
 the rays reach in shared memory (the sweep one azimuth's wedge per block,
 the fan the union box of a group of azimuths per block); for boxes above
-227 KB the sweep's ``"global"`` route reads through L1/L2, and the fan's
-``"chunked"`` route streams each azimuth's rays through two shared-memory
-stages, one distance band at a time, from :func:`sx_block.chunk_plan`.
-:func:`route` chooses from the shared-memory bytes alone. They compute the same (A, H, W)
+227 KB the ``"chunked"`` route, one kernel for both, streams each
+azimuth's rays through two shared-memory stages, one distance band at a
+time, from :func:`sx_block.chunk_plan`: the fan one azimuth per block, the
+sweep one work item of :func:`sx_block.split_plan` per block, so that on a
+grid that leaves SMs idle several blocks share an azimuth's tile and a
+second kernel folds their maxima. :func:`route` chooses from the
+shared-memory bytes alone. They compute the same (A, H, W)
 function, so they share one plain twin, :func:`sx_sweep_plain`: the
 transcription of the XLA branch of ``topo_descriptors_tpu/ops/sx.py::
 sx_sweep`` (a NaN-padded DEM and one ``torch.fmax`` pass per ray for each
@@ -40,7 +43,7 @@ from topo_descriptors_tpu_torch.ops.cuda import _build, sx_block
 from topo_descriptors_tpu_torch.ops.cuda.sx_block import TILE_H, TILE_W
 
 LAUNCHES = {"sx_sweep": 0, "sx_fan": 0}
-ROUTE_LAUNCHES = {"sx_sweep": {"tile": 0, "global": 0}, "sx_fan": {"tile": 0, "chunked": 0}}
+ROUTE_LAUNCHES = {"sx_sweep": {"tile": 0, "chunked": 0}, "sx_fan": {"tile": 0, "chunked": 0}}
 TABLES = TableCache()
 
 # the most shared memory one block of the fan's tile route may take (its
@@ -120,13 +123,36 @@ def fan_groups(boxes, budget: int) -> list:
     return groups
 
 
-def route(kernel: str, smem_bytes: int) -> str:
-    """``"tile"`` when a block's shared memory fits, else ``"global"``
-    (``sx_sweep``) or ``"chunked"`` (``sx_fan``); the grid's size plays no
-    part."""
-    if smem_bytes <= _build.SMEM_PER_BLOCK:
-        return "tile"
-    return "global" if kernel == "sx_sweep" else "chunked"
+def route(smem_bytes: int) -> str:
+    """Either kernel's route: ``"tile"`` when a block's shared memory
+    (``FanTables.sweep_smem`` or ``fan_smem``) fits, else ``"chunked"``; the
+    grid's size plays no part."""
+    return "tile" if smem_bytes <= _build.SMEM_PER_BLOCK else "chunked"
+
+
+def azimuth_tables(offs, group_ptr, inv, az_ptr) -> list:
+    """Each azimuth's :func:`sx_block.ray_groups` tables ``(offsets,
+    group_ptr, inv)`` out of the flat tables of :func:`sweep_tables`."""
+    rays = group_ptr[az_ptr]
+    return [(offs[rays[a] : rays[a + 1]], group_ptr[az_ptr[a] : az_ptr[a + 1] + 1] - rays[a],
+             inv[az_ptr[a] : az_ptr[a + 1]]) for a in range(len(az_ptr) - 1)]
+
+
+class SweepPlan(NamedTuple):
+    """The chunked route's plan on the device: :func:`sx_block.chunk_plan`
+    of every azimuth and the work items over its chunks."""
+
+    plan: torch.Tensor  # sx_block.chunk_plan of every azimuth
+    stage_floats: int  # one of its two stages, in floats
+    items: torch.Tensor  # (M, 4) int32 work items: azimuth, first chunk, end chunk, split
+    splits: torch.Tensor  # (A,) int32 work items per azimuth
+    max_splits: int  # the most of any azimuth: the workspace's planes per azimuth
+
+
+def upload_plan(plan, stage_floats: int, items, splits, device) -> SweepPlan:
+    """:class:`SweepPlan` of host arrays, uploaded to ``device``."""
+    return SweepPlan(upload(plan, device), stage_floats, upload(items, device),
+                     upload(splits, device), int(np.max(splits, initial=1)))
 
 
 class FanTables(NamedTuple):
@@ -145,8 +171,8 @@ class FanTables(NamedTuple):
     fan_soff: torch.Tensor  # (K',) int32, each ray's offset into its group's tile
     table_words: int  # one of the fan kernel's two table buffers, in words
     fan_smem: int  # the two table buffers and the largest group's staged tile
-    plan: Optional[torch.Tensor]  # the fan's chunked route: sx_block.chunk_plan, or None
-    stage_floats: int  # one of its two stages, in floats (0 without a plan)
+    fan_plan: Optional[SweepPlan]  # the fan's chunked route (one item per azimuth), or None
+    sweep_plans: dict  # the sweep's chunked route: SweepPlan per grid (device_sweep_plan)
 
 
 def fan_tables(offsets, distances, device) -> FanTables:
@@ -169,16 +195,16 @@ def fan_tables(offsets, distances, device) -> FanTables:
         fan.append((a0, a1, oy0, ox0, sh, sw))
     fan = np.array(fan, np.int32).reshape(-1, 6)
     fan_smem = 8 * words + max((4 * int(sh) * int(sw) for sh, sw in fan[:, 4:]), default=0)
-    plan, stage_floats = None, 0
-    if route("sx_fan", fan_smem) == "chunked":
-        plan, _, stage_floats = sx_block.chunk_plan(
-            [(offs[rays[a] : rays[a + 1]], group_ptr[az_ptr[a] : az_ptr[a + 1] + 1] - rays[a],
-              inv[az_ptr[a] : az_ptr[a + 1]]) for a in range(len(az_ptr) - 1)])
-        plan = upload(plan, device)
+    fan_plan = None
+    if route(fan_smem) == "chunked":
+        n_az = len(az_ptr) - 1
+        plan, _, stage_floats = sx_block.chunk_plan(azimuth_tables(offs, group_ptr, inv, az_ptr))
+        items, per_az, _ = sx_block.split_plan(plan, n_az, 0, 1, 1, splits=1)
+        fan_plan = upload_plan(plan, stage_floats, items, per_az, device)
     return FanTables(
         *(upload(t, device) for t in (offs, group_ptr, inv, az_ptr)), len(az_ptr) - 1,
         boxes, upload(sweep_boxes, device), sweep_smem, groups, upload(fan, device),
-        upload(fan_soff, device), words, fan_smem, plan, stage_floats,
+        upload(fan_soff, device), words, fan_smem, fan_plan, {},
     )
 
 
@@ -189,6 +215,33 @@ def device_tables(offsets, distances, border, device) -> FanTables:
     d = np.ascontiguousarray(distances, np.float64)
     key = (o.tobytes(), o.shape, d.tobytes(), int(border), torch.device(device))
     return TABLES.get(key, lambda: fan_tables(offsets, distances, device))
+
+
+def device_sweep_plan(offsets, distances, border, device, shape, zero_border, n_sms: int,
+                      tables: FanTables = None) -> SweepPlan:
+    """The sweep's chunked route on an (H, W) grid with ``n_sms`` SMs for a
+    deduplicated padded fan: :func:`sx_block.sweep_plan` as a
+    :class:`SweepPlan`, built and uploaded once per grid shape, zero border
+    and SM count and kept with the fan's :func:`device_tables` (``tables``,
+    where the caller has them)."""
+    t = device_tables(offsets, distances, border, device) if tables is None else tables
+    key = (tuple(shape), bool(zero_border), int(n_sms))
+    if key not in t.sweep_plans:
+        grid_tiles = sx_block.busy_tiles(shape, border, zero_border)
+        t.sweep_plans[key] = upload_plan(*sx_block.sweep_plan(
+            azimuth_tables(*sweep_tables(offsets, distances)), grid_tiles, n_sms), device)
+    return t.sweep_plans[key]
+
+
+def workspace_shape(p: SweepPlan, shape, border, zero_border) -> Optional[tuple]:
+    """``(S, A, rows, columns)`` of the workspace where the plan ``p`` splits
+    an azimuth on an (H, W) grid: S planes per azimuth over the box of the
+    tiles that read rays (:func:`sx_block.busy_box`); None where every
+    azimuth is one work item."""
+    if p.max_splits <= 1:
+        return None
+    _, _, rows, cols = sx_block.busy_box(shape, border, zero_border)
+    return p.max_splits, len(p.splits), rows, cols
 
 
 def sx_sweep_plain(
@@ -206,35 +259,70 @@ def sx_sweep_plain(
     return out
 
 
+def launch_sweep_chunked(dem: torch.Tensor, p: SweepPlan, border: int, height: float,
+                         zero_border: bool, kernel: str = "sx_sweep") -> torch.Tensor:
+    """Runs the chunked route on the plan ``p`` and returns the (A, H, W)
+    planes; where an azimuth has several work items their maxima go through
+    a :func:`workspace_shape` float32 workspace allocated here. Raises on a
+    CUDA error, naming ``kernel``; counts nothing."""
+    h, w = dem.shape
+    n_az = len(p.splits)
+    out = torch.empty((n_az, h, w), dtype=torch.float32, device=dem.device)
+    shape = workspace_shape(p, dem.shape, border, zero_border)
+    ws, splits, box = None, None, (0, 0, 0, 0)
+    if shape is not None:
+        ws = torch.empty(shape, dtype=torch.float32, device=dem.device)
+        splits, box = p.splits.data_ptr(), sx_block.busy_box(dem.shape, border, zero_border)
+    with torch.cuda.device(dem.device):
+        err = _build.library().sx_sweep_chunked_forward(
+            dem.data_ptr(), p.plan.data_ptr(), p.items.data_ptr(), len(p.items), n_az,
+            p.stage_floats, out.data_ptr(), None if ws is None else ws.data_ptr(), splits,
+            *box, h, w, int(border), float(height), int(bool(zero_border)),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"{kernel} (chunked)")
+    return out
+
+
+def sx_sweep_chunked(dem: torch.Tensor, offsets, distances, border: int, height: float = 10.0,
+                     zero_border: bool = True, tables: FanTables = None) -> torch.Tensor:
+    """The sweep's chunked route on a CUDA tensor whatever the boxes, on the
+    split plan the model picks for this grid: :func:`sx_sweep` takes it,
+    with the fan's ``tables``, where a wedge does not fit in shared
+    memory."""
+    sx_block.check_dem(dem, "sx_sweep")
+    n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+    p = device_sweep_plan(offsets, distances, border, dem.device, dem.shape, zero_border, n_sms,
+                          tables)
+    out = launch_sweep_chunked(dem, p, border, height, zero_border)
+    LAUNCHES["sx_sweep"] += 1
+    ROUTE_LAUNCHES["sx_sweep"]["chunked"] += 1
+    return out
+
+
 def _launch(kernel: str, dem, offsets, distances, border, height, zero_border):
     sx_block.check_dem(dem, kernel)
     h, w = dem.shape
     t = device_tables(offsets, distances, border, dem.device)
     smem = t.sweep_smem if kernel == "sx_sweep" else t.fan_smem
-    which = route(kernel, smem)
-    out = torch.empty((t.n_az, h, w), dtype=torch.float32, device=dem.device)
-    args = (int(border), float(height), int(bool(zero_border)))
-    lib = _build.library()
-    with torch.cuda.device(dem.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if which == "chunked":
-            err = sx_block.launch_chunked("sx_fan_chunked_forward", dem, t.plan, t.n_az,
-                                          t.stage_floats, out, border, height, zero_border)
-        elif which == "global":
-            err = lib.sx_sweep_forward(
-                dem.data_ptr(), t.offsets.data_ptr(), t.group_ptr.data_ptr(), t.inv.data_ptr(),
-                t.az_ptr.data_ptr(), t.n_az, out.data_ptr(), h, w, *args, stream)
+    which = route(smem)
+    if which == "chunked" and kernel == "sx_sweep":
+        return sx_sweep_chunked(dem, offsets, distances, border, height, zero_border, tables=t)
+    if which == "chunked":
+        out = launch_sweep_chunked(dem, t.fan_plan, border, height, zero_border, kernel)
+    else:
+        out = torch.empty((t.n_az, h, w), dtype=torch.float32, device=dem.device)
+        vec = int(dem.data_ptr() % 16 == 0 and w % 4 == 0)  # 16-byte row loads
+        if kernel == "sx_sweep":
+            rays, boxes, n, extra = t.offsets, t.sweep_boxes, t.n_az, ()
         else:
-            vec = int(dem.data_ptr() % 16 == 0 and w % 4 == 0)  # 16-byte row loads
-            if kernel == "sx_sweep":
-                rays, boxes, n, extra = t.offsets, t.sweep_boxes, t.n_az, ()
-            else:
-                rays, boxes, n, extra = t.fan_soff, t.fan, len(t.groups), (t.table_words,)
-            err = getattr(lib, f"{kernel}_tile_forward")(
+            rays, boxes, n, extra = t.fan_soff, t.fan, len(t.groups), (t.table_words,)
+        with torch.cuda.device(dem.device):
+            err = getattr(_build.library(), f"{kernel}_tile_forward")(
                 dem.data_ptr(), rays.data_ptr(), t.group_ptr.data_ptr(), t.inv.data_ptr(),
-                t.az_ptr.data_ptr(), boxes.data_ptr(), n, out.data_ptr(), h, w, *args,
-                smem, vec, *extra, stream)
-    _build.check(err, f"{kernel} ({which})")
+                t.az_ptr.data_ptr(), boxes.data_ptr(), n, out.data_ptr(), h, w, int(border),
+                float(height), int(bool(zero_border)), smem, vec, *extra,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, f"{kernel} (tile)")
     LAUNCHES[kernel] += 1
     ROUTE_LAUNCHES[kernel][which] += 1
     return out
@@ -246,7 +334,8 @@ def sx_sweep(
 ) -> torch.Tensor:
     """:func:`sx_sweep_plain` on a CPU tensor; on a CUDA tensor, which must
     be a contiguous float32 (H, W) DEM, the kernel with one azimuth per
-    block (tile route) or per thread (global route)."""
+    block (tile route) or one range of an azimuth's distance bands per block
+    (chunked route, :func:`sx_sweep_chunked`)."""
     if not on_cuda(dem):
         return sx_sweep_plain(dem, offsets, distances, border, height, zero_border)
     return _launch("sx_sweep", dem, offsets, distances, border, height, zero_border)
@@ -259,7 +348,8 @@ def sx_fan(
     """:func:`sx_sweep_plain` on a CPU tensor; on a CUDA tensor, which must
     be a contiguous float32 (H, W) DEM, the kernel with one group of
     azimuths per block (tile route) or one azimuth per block, its rays
-    streamed band by band (chunked route)."""
+    streamed band by band (chunked route: the sweep's kernel on one work
+    item per azimuth)."""
     if not on_cuda(dem):
         return sx_sweep_plain(dem, offsets, distances, border, height, zero_border)
     return _launch("sx_fan", dem, offsets, distances, border, height, zero_border)

@@ -67,33 +67,53 @@ def _sweep_deduped(offsets, distances):
     return DEDUPED.get(key, build)
 
 
-def _sweep_auto_method(dem: torch.Tensor) -> str:
-    """Backend for :func:`sx_sweep` when ``method='auto'``.
+def _sweep_auto_method(dem: torch.Tensor, offsets, distances, border: int,
+                       zero_border: bool = True) -> str:
+    """Backend for :func:`sx_sweep` when ``method='auto'``, for a
+    deduplicated fan on ``dem``'s grid.
 
     A CPU tensor takes the plain twin (``'xla'``). A CUDA tensor takes the
     faster of the two whole-fan kernels, never the twin: the JAX rule
     (``topo_descriptors_tpu.ops.sx._sweep_auto_method``) weighs Mosaic
     compile costs, which the CUDA build does not have.
 
-    That is ``sx_fan`` (``'pallas_fan'``). Both kernels run their
+    That is ``sx_sweep`` (``'pallas_sweep'``) where its boxes exceed one
+    block's shared memory and the grid leaves SMs idle: its busy tiles
+    (:func:`sx_block.busy_tiles`) times the fan's azimuths make fewer
+    blocks than the most per SM of ``sx_block.CHUNK_STAGES`` times the
+    card's SMs (one to three azimuths at 10 km on 900 x 1440, whose 104
+    busy tiles meet 132 SMs). There both kernels run the one chunked block
+    loop, ``sx_fan`` one block per (tile, azimuth), ``sx_sweep`` on its
+    split plan, which can cut an azimuth's distance bands over several
+    blocks. ``chip_smoke.py`` phase 5 on an NVIDIA H100 80GB HBM3 at a
+    700.00 W power limit (CUDA events, median of 20), 10 km on 900 x 1440,
+    ``sx_fan`` against ``sx_sweep`` on the plan its model picked (not a
+    forced one): 1.1680 against 0.9297 ms on azimuths 0 and 45 (S = 7
+    items per azimuth); 12.6364 against 12.3972 ms on 36 azimuths, where
+    the grid is busy and the plan has S = 1, the fan's loop.
+
+    Everywhere else ``sx_fan`` (``'pallas_fan'``). Both kernels run their
     shared-memory tile route on the 36-azimuth fans up to 2000 m;
-    ``chip_smoke.py``'s times on an NVIDIA H100 80GB HBM3 at a 700.00 W
-    power limit (CUDA events, median of 20), ``sx_fan`` against
-    ``sx_sweep``: 0.2620 against 0.3245 ms at 900 x 1440 and r = 200 m,
-    5.2242 against 5.1324 ms at
-    r = 2000 m (BASELINE.json configs[3]), 24.4394 against 30.3623 ms at
-    8192 x 8192 and r = 500 m; 29.93 against 35.82 ms summed. A fan block
-    stages its group's box and reads each output's DEM value once for all
-    its azimuths, where a sweep block does both for one azimuth; that
-    per-block work counts at the short radii and is lost in the ray loop at
-    2000 m. The per-azimuth ``sx_block`` loop (``'pallas'``) took 4.9438,
-    10.1693 and 46.2821 ms on the same run. Where a fan's boxes exceed one
-    block's shared memory (10 km), ``sx_fan`` takes its ``chunked`` route
-    and ``sx_sweep`` its ``global`` one: 1.1443 against 3.1584 ms on
-    azimuths 0 and 45 at 900 x 1440 (``chip_smoke.py`` phase 5, the same
-    card and limit).
+    ``chip_smoke.py``'s times on the same card and limit, ``sx_fan``
+    against ``sx_sweep``: 0.2620 against 0.3245 ms at 900 x 1440 and r =
+    200 m, 5.2242 against 5.1324 ms at r = 2000 m (BASELINE.json
+    configs[3]), 24.4394 against 30.3623 ms at 8192 x 8192 and r = 500 m;
+    29.93 against 35.82 ms summed. A fan block stages its group's box and
+    reads each output's DEM value once for all its azimuths, where a sweep
+    block does both for one azimuth; that per-block work counts at the
+    short radii and is lost in the ray loop at 2000 m. The per-azimuth
+    ``sx_block`` loop (``'pallas'``) took 4.9438, 10.1693 and 46.2821 ms on
+    the same run.
     """
-    return "pallas_fan" if on_cuda(dem) else "xla"
+    if not on_cuda(dem):
+        return "xla"
+    n_sms = torch.cuda.get_device_properties(dem.device).multi_processor_count
+    blocks = sx_block.busy_tiles(dem.shape, border, zero_border) * len(offsets)
+    if blocks < max(sx_block.CHUNK_STAGES) * n_sms:
+        t = cuda_sweep.device_tables(offsets, distances, border, dem.device)
+        if cuda_sweep.route(t.sweep_smem) == "chunked":
+            return "pallas_sweep"
+    return "pallas_fan"
 
 
 def _strip_pad_rows(offsets: np.ndarray, distances: np.ndarray):
@@ -126,7 +146,8 @@ def sx_sweep(
     first. Plane ``a`` equals :func:`sx` on azimuth ``a``'s table.
 
     ``method`` keeps the JAX names: ``'pallas_sweep'`` runs the kernel with
-    one azimuth per block, ``'pallas_fan'`` the kernel with one group of
+    one azimuth per block (on its chunked route, one work item of its split
+    plan), ``'pallas_fan'`` the kernel with one group of
     azimuths per block, ``'pallas'`` ``sx_block`` per azimuth, each plane
     written into one preallocated output, and ``'xla'`` the plain twin on
     any device. Each kernel route takes its plain twin on a CPU tensor.
@@ -139,7 +160,7 @@ def sx_sweep(
     dem = as_field(dem, device)
     offsets, distances = _sweep_deduped(offsets, distances)
     if method == "auto":
-        method = _sweep_auto_method(dem)
+        method = _sweep_auto_method(dem, offsets, distances, border, zero_border)
     if method == "pallas":  # each plane written into one (A, H, W) output
         out = torch.empty((len(offsets),) + tuple(dem.shape), dtype=dem.dtype, device=dem.device)
         for a, (o, d) in enumerate(zip(offsets, distances)):

@@ -11,6 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from topo_descriptors_tpu_torch.utils.timing import span
+
+# Bytes the program moved between host memory and a CUDA device, by
+# direction: ``as_field`` and ``upload`` count "h2d", ``to_host`` "d2h".
+COPIED_BYTES = {"h2d": 0, "d2h": 0}
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a :class:`torch.device`, a CUDA device with its index
@@ -34,7 +40,11 @@ def as_field(array, device) -> torch.Tensor:
     dev = resolve_device(device)
     if not isinstance(array, torch.Tensor):
         array = torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
-    return array.to(device=dev, dtype=torch.float32).contiguous()
+    from_host = array.device.type == "cpu"
+    out = array.to(device=dev, dtype=torch.float32).contiguous()
+    if from_host and out.is_cuda:
+        COPIED_BYTES["h2d"] += out.nbytes
+    return out
 
 
 def upload(array: np.ndarray, device) -> torch.Tensor:
@@ -42,7 +52,18 @@ def upload(array: np.ndarray, device) -> torch.Tensor:
     ``device`` without waiting for the device: a blocking copy would
     synchronise the stream, while an asynchronous one from pageable memory
     is staged before it returns, so ``array`` may be dropped at once."""
-    return torch.from_numpy(np.ascontiguousarray(array)).to(device, non_blocking=True)
+    out = torch.from_numpy(np.ascontiguousarray(array)).to(device, non_blocking=True)
+    if out.is_cuda:
+        COPIED_BYTES["h2d"] += out.nbytes
+    return out
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array, counting the bytes when it comes off a CUDA
+    device."""
+    if t.is_cuda:
+        COPIED_BYTES["d2h"] += t.nbytes
+    return t.cpu().numpy()
 
 
 class TableCache:
@@ -59,14 +80,15 @@ class TableCache:
     def get(self, key, build):
         """The cached value of ``key``, or ``build()``'s, kept in place of
         the oldest entry."""
-        value = self._tables.get(key)
-        if value is None:
-            value = build()
-            self.builds += 1
-            while len(self._tables) >= self.size:
-                self._tables.pop(next(iter(self._tables)))
-            self._tables[key] = value
-        return value
+        with span("prep.table"):
+            value = self._tables.get(key)
+            if value is None:
+                value = build()
+                self.builds += 1
+                while len(self._tables) >= self.size:
+                    self._tables.pop(next(iter(self._tables)))
+                self._tables[key] = value
+            return value
 
     def __len__(self) -> int:
         return len(self._tables)

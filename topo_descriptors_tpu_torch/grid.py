@@ -72,17 +72,19 @@ class RasterGrid:
         reference returns them (helpers.py:105).
         """
         from topo_descriptors_tpu_torch.geo import utm_from_latlon
+        from topo_descriptors_tpu_torch.utils.timing import span
 
-        x_coords, y_coords = self.x, self.y
-        if self.is_geographic:
-            x_mesh, y_mesh = np.meshgrid(x_coords, y_coords)
-            x_m, y_m = utm_from_latlon(y_mesh, x_mesh)
-            x_coords = x_m.astype(np.float32)
-            y_coords = y_m.astype(np.float32)
-        n_dims = x_coords.ndim
-        x_res = np.gradient(x_coords, axis=n_dims - 1)
-        y_res = np.gradient(y_coords, axis=0)
-        return {"x": x_res, "y": y_res}
+        with span("resolution"):
+            x_coords, y_coords = self.x, self.y
+            if self.is_geographic:
+                x_mesh, y_mesh = np.meshgrid(x_coords, y_coords)
+                x_m, y_m = utm_from_latlon(y_mesh, x_mesh)
+                x_coords = x_m.astype(np.float32)
+                y_coords = y_m.astype(np.float32)
+            n_dims = x_coords.ndim
+            x_res = np.gradient(x_coords, axis=n_dims - 1)
+            y_res = np.gradient(y_coords, axis=0)
+            return {"x": x_res, "y": y_res}
 
     def mean_resolution_meters(self) -> float:
         """Mean |resolution| over both axes (reference helpers.py:102)."""

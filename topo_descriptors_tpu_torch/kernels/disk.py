@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from topo_descriptors_tpu_torch.utils.timing import span
+
 
 def circular_kernel(size: int, exclude_center: bool = False) -> np.ndarray:
     """Boolean disk of diameter ``size`` as float32 weights.
@@ -18,14 +20,15 @@ def circular_kernel(size: int, exclude_center: bool = False) -> np.ndarray:
     topo.py:206-207). ``exclude_center=True`` zeroes the middle tap, as TPI
     does before convolving (topo.py:170).
     """
-    size = int(size)
-    middle = int(size / 2)
-    if size < 5:
-        kernel = np.ones((size, size), dtype=np.float32)
-    else:
-        xx, yy = np.mgrid[:size, :size]
-        circle = (xx - middle) ** 2 + (yy - middle) ** 2
-        kernel = np.asarray(circle <= middle**2, dtype=np.float32)
-    if exclude_center:
-        kernel[middle, middle] = 0.0
-    return kernel
+    with span("prep.kernel"):
+        size = int(size)
+        middle = int(size / 2)
+        if size < 5:
+            kernel = np.ones((size, size), dtype=np.float32)
+        else:
+            xx, yy = np.mgrid[:size, :size]
+            circle = (xx - middle) ** 2 + (yy - middle) ** 2
+            kernel = np.asarray(circle <= middle**2, dtype=np.float32)
+        if exclude_center:
+            kernel[middle, middle] = 0.0
+        return kernel

@@ -20,6 +20,8 @@ from typing import Tuple
 
 import numpy as np
 
+from topo_descriptors_tpu_torch.utils.timing import span
+
 
 def sx_distance(radius: float, dx: float, dy: float) -> np.ndarray:
     """Metric distance-from-centre window of size ~(2*radius_pxl+1)^2.
@@ -115,24 +117,25 @@ def sx_offsets(
     border : int — width of the untouched border the reference leaves at 0
         (``int(window_size/2)``, topo.py:932,940-941).
     """
-    if azimuth_arc == 0:
-        azimuth_steps = 1
-    azimuths = np.linspace(
-        azimuth - azimuth_arc / 2, azimuth + azimuth_arc / 2, azimuth_steps
-    )
+    with span("prep.rays"):
+        if azimuth_arc == 0:
+            azimuth_steps = 1
+        azimuths = np.linspace(
+            azimuth - azimuth_arc / 2, azimuth + azimuth_arc / 2, azimuth_steps
+        )
 
-    window_distance = sx_distance(radius, dx, dy)
-    window_distance[window_distance < radius_min] = np.nan
+        window_distance = sx_distance(radius, dx, dy)
+        window_distance[window_distance < radius_min] = np.nan
 
-    window_center = np.floor(np.array(window_distance.shape) / 2)
-    source_delta = sx_source_idx_delta(azimuths, radius, dx, dy)
-    source = (window_center + source_delta).astype(int)
-    lines = sx_bresenhamlines(source, window_center)
+        window_center = np.floor(np.array(window_distance.shape) / 2)
+        source_delta = sx_source_idx_delta(azimuths, radius, dx, dy)
+        source = (window_center + source_delta).astype(int)
+        lines = sx_bresenhamlines(source, window_center)
 
-    distances = window_distance[lines[:, 0], lines[:, 1]]
-    border = int(window_distance.shape[0] / 2)
-    offsets = (lines - border).astype(np.int32)
-    return offsets, distances, border
+        distances = window_distance[lines[:, 0], lines[:, 1]]
+        border = int(window_distance.shape[0] / 2)
+        offsets = (lines - border).astype(np.int32)
+        return offsets, distances, border
 
 
 def sx_dedupe(
@@ -198,16 +201,17 @@ def sx_sweep_offsets(
 
     Returns (offsets (A, Kmax, 2) int32, distances (A, Kmax) float64, border).
     """
-    per_az = [
-        sx_offsets(a, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
-        for a in np.atleast_1d(azimuths)
-    ]
-    border = per_az[0][2]
-    kmax = max(o.shape[0] for o, _, _ in per_az)
-    offsets = np.zeros((len(per_az), kmax, 2), dtype=np.int32)
-    distances = np.full((len(per_az), kmax), np.nan)
-    for i, (offs, dists, b) in enumerate(per_az):
-        assert b == border
-        offsets[i, : offs.shape[0]] = offs
-        distances[i, : dists.shape[0]] = dists
-    return offsets, distances, border
+    with span("prep.rays"):
+        per_az = [
+            sx_offsets(a, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
+            for a in np.atleast_1d(azimuths)
+        ]
+        border = per_az[0][2]
+        kmax = max(o.shape[0] for o, _, _ in per_az)
+        offsets = np.zeros((len(per_az), kmax, 2), dtype=np.int32)
+        distances = np.full((len(per_az), kmax), np.nan)
+        for i, (offs, dists, b) in enumerate(per_az):
+            assert b == border
+            offsets[i, : offs.shape[0]] = offs
+            distances[i, : dists.shape[0]] = dists
+        return offsets, distances, border

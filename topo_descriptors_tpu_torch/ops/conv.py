@@ -27,6 +27,7 @@ from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import upload
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_kernel1d
 from topo_descriptors_tpu_torch.ops.cuda import disk_sat
+from topo_descriptors_tpu_torch.utils.timing import span
 
 
 def _fft_shape(n: int) -> int:
@@ -60,13 +61,14 @@ def _binary_kernel_runs(kernel: np.ndarray):
     Returns ``[(row, first_col, last_col), ...]`` (inclusive bounds) or None
     if the kernel has non-binary weights.
     """
-    k = np.asarray(kernel)
-    if not np.isin(k, (0.0, 1.0)).all():
-        return None
-    edges = np.diff(np.pad(k != 0, ((0, 0), (1, 1))).astype(np.int8), axis=1)
-    rows, first = np.nonzero(edges == 1)  # row-major: runs in row order
-    _, end = np.nonzero(edges == -1)
-    return [(int(r), int(s), int(e - 1)) for r, s, e in zip(rows, first, end)]
+    with span("prep.runs"):
+        k = np.asarray(kernel)
+        if not np.isin(k, (0.0, 1.0)).all():
+            return None
+        edges = np.diff(np.pad(k != 0, ((0, 0), (1, 1))).astype(np.int8), axis=1)
+        rows, first = np.nonzero(edges == 1)  # row-major: runs in row order
+        _, end = np.nonzero(edges == -1)
+        return [(int(r), int(s), int(e - 1)) for r, s, e in zip(rows, first, end)]
 
 
 def _sat_runs(kernel: np.ndarray, method: str):
@@ -356,15 +358,16 @@ def gaussian_filter(
         sigmas = (float(sigma), float(sigma))
     else:
         sigmas = (float(sigma[0]), float(sigma[1]))
-    for axis, s in enumerate(sigmas):
-        if s <= 0:
-            continue
-        taps = gaussian_kernel1d(s, truncate).astype(np.float32)
-        r = (taps.shape[0] - 1) // 2
-        if pad:
-            x = reflect_pad_1d(x, axis, r, r)
-        x = _correlate1d_valid(x, taps, axis)
-    return x
+    with span("smooth"):
+        for axis, s in enumerate(sigmas):
+            if s <= 0:
+                continue
+            taps = gaussian_kernel1d(s, truncate).astype(np.float32)
+            r = (taps.shape[0] - 1) // 2
+            if pad:
+                x = reflect_pad_1d(x, axis, r, r)
+            x = _correlate1d_valid(x, taps, axis)
+        return x
 
 
 def convolve_reflect(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
@@ -465,24 +468,25 @@ def edge_count_plane_device(shape, kernel: np.ndarray, device, window=None) -> t
     rank-1 run form for {0,1} kernels, else lookups into the kernel's
     integral image. ``window = ((r0, r1), (c0, c1))`` builds only those
     rows and columns of the plane (a block of a sharded grid)."""
-    h, w = shape
-    window = ((0, h), (0, w)) if window is None else window
-    runs = _binary_kernel_runs(np.asarray(kernel)[::-1, ::-1])
-    if runs is not None:
-        return _edge_count_plane_rank1(shape, kernel, runs, device, window)
-    kernel = np.asarray(kernel, dtype=np.float64)
-    kh, kw = kernel.shape
-    sh, sw = (kh - 1) // 2, (kw - 1) // 2
-    integral = np.zeros((kh + 1, kw + 1), dtype=np.float32)
-    integral[1:, 1:] = kernel.cumsum(0).cumsum(1)
-    table = upload(integral, device)
+    with span("prep.count_plane"):
+        h, w = shape
+        window = ((0, h), (0, w)) if window is None else window
+        runs = _binary_kernel_runs(np.asarray(kernel)[::-1, ::-1])
+        if runs is not None:
+            return _edge_count_plane_rank1(shape, kernel, runs, device, window)
+        kernel = np.asarray(kernel, dtype=np.float64)
+        kh, kw = kernel.shape
+        sh, sw = (kh - 1) // 2, (kw - 1) // 2
+        integral = np.zeros((kh + 1, kw + 1), dtype=np.float32)
+        integral[1:, 1:] = kernel.cumsum(0).cumsum(1)
+        table = upload(integral, device)
 
-    y = torch.arange(*window[0], device=device)
-    x = torch.arange(*window[1], device=device)
-    m0 = torch.clamp(y + sh - (h - 1), 0, kh)
-    m1 = torch.clamp(y + sh + 1, 0, kh)
-    n0 = torch.clamp(x + sw - (w - 1), 0, kw)
-    n1 = torch.clamp(x + sw + 1, 0, kw)
-    rows_hi = table[m1]  # (H, kw+1)
-    rows_lo = table[m0]
-    return rows_hi[:, n1] - rows_lo[:, n1] - rows_hi[:, n0] + rows_lo[:, n0]
+        y = torch.arange(*window[0], device=device)
+        x = torch.arange(*window[1], device=device)
+        m0 = torch.clamp(y + sh - (h - 1), 0, kh)
+        m1 = torch.clamp(y + sh + 1, 0, kh)
+        n0 = torch.clamp(x + sw - (w - 1), 0, kw)
+        n1 = torch.clamp(x + sw + 1, 0, kw)
+        rows_hi = table[m1]  # (H, kw+1)
+        rows_lo = table[m0]
+        return rows_hi[:, n1] - rows_lo[:, n1] - rows_hi[:, n0] + rows_lo[:, n0]

@@ -25,7 +25,7 @@ import torch
 
 from topo_descriptors_tpu_torch import geo, ops
 from topo_descriptors_tpu_torch.config import CFG
-from topo_descriptors_tpu_torch.device import as_field, resolve_device
+from topo_descriptors_tpu_torch.device import as_field, resolve_device, to_host
 from topo_descriptors_tpu_torch.grid import Raster, check_dem
 from topo_descriptors_tpu_torch.io.netcdf import to_netcdf
 from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
@@ -33,7 +33,7 @@ from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes
 from topo_descriptors_tpu_torch.parallel.mesh import pad_to_mesh
 from topo_descriptors_tpu_torch.parallel.sharded import ShardedOps
 from topo_descriptors_tpu_torch.parallel.tiles import TiledRunner
-from topo_descriptors_tpu_torch.utils.timing import timer
+from topo_descriptors_tpu_torch.utils.timing import span, timer
 
 logger = logging.getLogger(__name__)
 
@@ -45,10 +45,11 @@ def _as_list(value, length=None):
 
 
 def _apply_nans(array: np.ndarray, ind_nans) -> np.ndarray:
-    array = np.array(array)
-    if ind_nans is not None and len(ind_nans) and len(ind_nans[0]):
-        array[ind_nans] = np.nan
-    return array
+    with span("nan_pass"):
+        array = np.array(array)
+        if ind_nans is not None and len(ind_nans) and len(ind_nans[0]):
+            array[ind_nans] = np.nan
+        return array
 
 
 def _existing(name: str, outdir) -> Optional[Path]:
@@ -73,10 +74,12 @@ def _compute_backend(dem_val, backend, device, ragged_fill=None):
     crops back. A driver whose op has no exact padded form passes
     ``ragged_fill=None`` and gets an actionable error instead.
     """
+    if backend is None:
+        with span("upload"):
+            dem_val = np.asarray(dem_val, dtype=CFG.compute_dtype)
+            return as_field(dem_val, device), _to_host, dem_val.shape
     dem_val = np.asarray(dem_val, dtype=CFG.compute_dtype)
     shape = dem_val.shape
-    if backend is None:
-        return as_field(dem_val, device), _to_host, shape
     if isinstance(backend, TiledRunner):
         if resolve_device(device) != backend.device:
             raise ValueError(f"device={device!r} but the TiledRunner runs on {backend.device}; "
@@ -104,7 +107,8 @@ def _compute_backend(dem_val, backend, device, ragged_fill=None):
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    with span("d2h"):
+        return to_host(t)
 
 
 def _valid_kwargs(backend, array, valid_shape) -> dict:
@@ -280,7 +284,8 @@ def _compute_disk_family(
                     else:
                         op = sharded.tpi if kind == "tpi" else sharded.std
                         array = op(dem_dev, int(scales_pxl[idx]), sigmas[idx], **vs)
-                write(kind, idx, to_host(array))
+                    array = to_host(array)
+                write(kind, idx, array)
 
     return [
         written[(kind, idx)] for kind in kinds for idx in range(len(scales))

@@ -18,7 +18,6 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from topo_descriptors_tpu_torch.device import resolve_device
 from topo_descriptors_tpu_torch.utils.timing import Timings
 
 logger = logging.getLogger(__name__)
@@ -26,9 +25,13 @@ logger = logging.getLogger(__name__)
 
 def device_spans(prof) -> List[Tuple[int, int]]:
     """``(start_ns, end_ns)`` of every device event (kernel, copy, memset)
-    of a finished ``torch.profiler.profile``."""
+    of a finished ``torch.profiler.profile``. The device-side copies of
+    ``record_function`` ranges (user annotations, which cover the work
+    launched inside a range and the gaps between it) are not device work
+    and are left out."""
     return [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA]
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation()]
 
 
 def device_busy_s(spans: Iterable[Tuple[int, int]]) -> Optional[float]:
@@ -74,6 +77,8 @@ def device_trace(logdir, device="cuda"):
     there is none raises.
     """
     from torch.profiler import ProfilerActivity, profile
+
+    from topo_descriptors_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     activities = [ProfilerActivity.CPU]

@@ -974,35 +974,32 @@ def time_wide(grids, smi_line):
 
 def whole_op_tpi(dem, smi_line):
     """``ops.tpi`` at the 100 km disk (3333 px) on 900x1440 against its
-    kernel, and the host work the op repeats on every call: the kernel's
-    11 M taps, their runs (taken twice: the convolution and the count
-    plane) and the count plane (runs again, then a dense (H x runs) by
-    one-hot (runs x groups) product on the host); and the wide plan's
-    build, which ``TABLES`` keeps after the first call."""
+    kernel, and the host work the op repeats on every call: the disk's runs
+    from its diameter (``kernels.Disk``, taken once a call) and the count
+    plane's factors and product; and the wide plan's build, which
+    ``TABLES`` keeps after the first call."""
     from topo_descriptors_tpu_torch import ops
-    from topo_descriptors_tpu_torch.host import circular_kernel
-    from topo_descriptors_tpu_torch.ops.conv import (_binary_kernel_runs, _same_pads,
-                                                     edge_count_plane_device)
+    from topo_descriptors_tpu_torch.kernels import Disk
+    from topo_descriptors_tpu_torch.ops.conv import _same_pads, edge_count_plane_device
     from topo_descriptors_tpu_torch.ops.cuda import disk_sat
 
-    kernel = circular_kernel(3333, exclude_center=True)
-    runs = _binary_kernel_runs(kernel[::-1, ::-1])
+    disk = Disk(3333, exclude_center=True)
+    runs = disk.runs
     z = (dem - torch.round(dem.mean()))[None].contiguous()
     pads = (_same_pads(3333), _same_pads(3333))
     parts = {
         "ops.tpi": lambda: ops.tpi(dem, 3333, device=dem.device),
-        "kernel": lambda: disk_sat.disk_conv_sat(z, kernel.shape, runs, pads),
-        "circular_kernel": lambda: circular_kernel(3333, exclude_center=True),
-        "runs": lambda: _binary_kernel_runs(kernel[::-1, ::-1]),
-        "count plane": lambda: edge_count_plane_device(dem.shape, kernel, dem.device),
+        "kernel": lambda: disk_sat.disk_conv_sat(z, disk.shape, runs, pads),
+        "runs": lambda: Disk(3333, exclude_center=True).runs,
+        "count plane": lambda: edge_count_plane_device(dem.shape, Disk(3333, True), dem.device),
         "wide plan": lambda: disk_sat.wide_plan(runs),
     }
     ms = {name: median_ms(fn, reps=3, warmup=1) for name, fn in parts.items()}
     print(f"[time] whole op ops.tpi(3333 px) 900x1440: {ms['ops.tpi']:.1f} ms against its "
-          f"disk_sat kernel {ms['kernel']:.4f} ms; host work per call: circular_kernel "
-          f"{ms['circular_kernel']:.1f} ms, the runs {ms['runs']:.1f} ms (taken twice), "
-          f"edge_count_plane_device {ms['count plane']:.1f} ms; once per kernel: wide_plan "
-          f"{ms['wide plan']:.1f} ms (median of 3) on {smi_line}")
+          f"disk_sat kernel {ms['kernel']:.4f} ms; host work per call: the disk's runs "
+          f"{ms['runs']:.1f} ms, edge_count_plane_device {ms['count plane']:.1f} ms (runs "
+          f"included); once per kernel: wide_plan {ms['wide plan']:.1f} ms (median of 3) on "
+          f"{smi_line}")
     return ms
 
 

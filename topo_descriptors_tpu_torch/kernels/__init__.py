@@ -10,7 +10,7 @@ most — and shipped to the TPU as compile-time constants, so XLA folds them
 straight into the convolution lowering.
 """
 
-from topo_descriptors_tpu_torch.kernels.disk import circular_kernel
+from topo_descriptors_tpu_torch.kernels.disk import Disk, circular_kernel
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_kernel1d, gaussian_radius
 from topo_descriptors_tpu_torch.kernels.sobel import sobel_kernel
 from topo_descriptors_tpu_torch.kernels.valley import (
@@ -30,6 +30,7 @@ from topo_descriptors_tpu_torch.kernels.sx_geometry import (
 )
 
 __all__ = [
+    "Disk",
     "circular_kernel",
     "gaussian_kernel1d",
     "gaussian_radius",

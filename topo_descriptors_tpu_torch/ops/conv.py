@@ -25,9 +25,14 @@ import torch.nn.functional as F
 
 from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import upload
+from topo_descriptors_tpu_torch.kernels.disk import Disk
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_kernel1d
 from topo_descriptors_tpu_torch.ops.cuda import disk_sat
 from topo_descriptors_tpu_torch.utils.timing import span
+
+# The run lists the disk routes took, by where they came from: "closed_form"
+# from a Disk's diameter, "scanned" from a {0,1} array's values.
+DISK_RUNS = {"closed_form": 0, "scanned": 0}
 
 
 def _fft_shape(n: int) -> int:
@@ -71,20 +76,37 @@ def _binary_kernel_runs(kernel: np.ndarray):
         return [(int(r), int(s), int(e - 1)) for r, s, e in zip(rows, first, end)]
 
 
-def _sat_runs(kernel: np.ndarray, method: str):
+def _as_kernel(kernel):
+    """A :class:`Disk` as it is, any other kernel as an ndarray."""
+    return kernel if isinstance(kernel, Disk) else np.asarray(kernel)
+
+
+def _kernel_runs(kernel):
+    """The flipped kernel's runs: a Disk's from its diameter, an array's
+    from a scan of its values (None unless they are all 0 or 1)."""
+    if isinstance(kernel, Disk):
+        runs, source = kernel.runs, "closed_form"
+    else:
+        runs, source = _binary_kernel_runs(kernel[::-1, ::-1]), "scanned"
+    if runs is not None:
+        DISK_RUNS[source] += 1
+    return runs
+
+
+def _sat_runs(kernel, method: str):
     """The flipped kernel's runs when the prefix-sum path applies, else None."""
-    if method not in ("auto", "sat"):
+    kh, kw = kernel.shape
+    if method not in ("auto", "sat") or (method == "auto" and kh * kw < CFG.sat_conv_min_taps):
         return None
-    runs = _binary_kernel_runs(kernel[::-1, ::-1])
+    runs = _kernel_runs(kernel)
     if method == "sat" and runs is None:
         raise ValueError("method='sat' requires a {0,1}-valued kernel")
-    if runs is not None and (method == "sat" or kernel.size >= CFG.sat_conv_min_taps):
-        return runs
-    return None
+    return runs
 
 
-def conv2d_same(x: torch.Tensor, kernel: np.ndarray, method: str = "auto") -> torch.Tensor:
-    """2-D convolution, ``mode='same'`` with zero boundary.
+def conv2d_same(x: torch.Tensor, kernel, method: str = "auto") -> torch.Tensor:
+    """2-D convolution, ``mode='same'`` with zero boundary; ``kernel`` is an
+    array or a :class:`Disk`.
 
     Parity target: ``scipy.signal.convolve(x, kernel, mode='same')``. Methods:
     ``'sat'`` (prefix sums, {0,1} kernels), ``'direct'``, ``'fft'``, or
@@ -93,14 +115,16 @@ def conv2d_same(x: torch.Tensor, kernel: np.ndarray, method: str = "auto") -> to
     return conv2d_same_multi(x[None], kernel, method)[0]
 
 
-def conv2d_same_multi(xs: torch.Tensor, kernel: np.ndarray, method: str = "auto") -> torch.Tensor:
-    """Convolve a stack of 2-D fields (B, H, W) with one kernel -> (B, H, W)."""
-    kernel = np.asarray(kernel)
+def conv2d_same_multi(xs: torch.Tensor, kernel, method: str = "auto") -> torch.Tensor:
+    """Convolve a stack of 2-D fields (B, H, W) with one kernel (an array or
+    a :class:`Disk`) -> (B, H, W)."""
+    kernel = _as_kernel(kernel)
     kh, kw = kernel.shape
     pads = (_same_pads(kh), _same_pads(kw))
     runs = _sat_runs(kernel, method)
     if runs is not None:  # the JAX package's _conv2d_sat
         return disk_sat.disk_conv_sat(xs, kernel.shape, runs, pads)
+    kernel = np.asarray(kernel)  # a Disk's mask: these routes need the weights
     if method in ("auto", "sat"):
         method = "fft" if kernel.size >= CFG.fft_conv_min_taps else "direct"
     if method == "fft":
@@ -200,15 +224,17 @@ def _conv2d_same_fft(xs: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     return full[:, sh : sh + h, sw : sw + w].to(xs.dtype)
 
 
-def conv2d_valid(xs: torch.Tensor, kernel: np.ndarray, method: str = "auto") -> torch.Tensor:
-    """VALID-mode true convolution of a (B, H, W) stack with one kernel
-    -> (B, H-kh+1, W-kw+1): ``out[i] = sum_j x[i+j] * flip(kernel)[j]``.
-    Routes as :func:`conv2d_same_multi`, with zero pads."""
-    kernel = np.asarray(kernel)
+def conv2d_valid(xs: torch.Tensor, kernel, method: str = "auto") -> torch.Tensor:
+    """VALID-mode true convolution of a (B, H, W) stack with one kernel (an
+    array or a :class:`Disk`) -> (B, H-kh+1, W-kw+1): ``out[i] = sum_j
+    x[i+j] * flip(kernel)[j]``. Routes as :func:`conv2d_same_multi`, with
+    zero pads."""
+    kernel = _as_kernel(kernel)
     kh, kw = kernel.shape
     runs = _sat_runs(kernel, method)
     if runs is not None:
         return disk_sat.disk_conv_sat(xs, kernel.shape, runs, ((0, 0), (0, 0)))
+    kernel = np.asarray(kernel)
     if method in ("auto", "sat"):
         method = "fft" if kernel.size >= CFG.fft_conv_min_taps else "direct"
     if method == "fft":
@@ -427,7 +453,7 @@ def edge_count_plane(shape: Tuple[int, int], kernel: np.ndarray) -> np.ndarray:
     )
 
 
-def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device, window) -> torch.Tensor:
+def _edge_count_plane_rank1(shape, kshape, runs, device, window) -> torch.Tensor:
     """``conv2d_same(ones(shape), kernel)`` for {0,1} kernels: each group of
     rows sharing a run contributes (in-bounds source rows at output row y)
     x (in-bounds columns of the run at output column x), a rank-1 term.
@@ -437,7 +463,7 @@ def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device, window) -> 
     below 2^24, so the float32 result is exact in any summation order."""
     h, w = shape
     (r0, r1), (c0, c1) = window
-    kh, kw = np.asarray(kernel).shape
+    kh, kw = kshape
     sy, sx_ = (kh - 1) // 2, (kw - 1) // 2
     ly, lx = kh - 1 - sy, kw - 1 - sx_
 
@@ -448,10 +474,14 @@ def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device, window) -> 
     owner = np.repeat(np.arange(len(groups)), [len(grows) for _, _, grows in groups])
     a = np.array([g[0] for g in groups])[:, None]
     bcol = np.array([g[1] for g in groups])[:, None]
-    # source rows live at padded rows [ly, ly+h); run row = y + r
-    y = np.arange(r0, r1)[:, None] + rows[None, :]
-    inside = ((y >= ly) & (y < ly + h)).astype(np.float32)  # (H, runs)
-    rvecs = inside @ np.eye(len(groups), dtype=np.float32)[owner]  # (H, G)
+    # source rows live at padded rows [ly, ly+h): run row r is inside at
+    # output rows y in [ly-r, ly+h-r), counted per group as a running sum
+    # of +1/-1 steps over the window's rows
+    n = r1 - r0
+    steps = np.zeros((n + 1, len(groups)), dtype=np.int32)
+    np.add.at(steps, (np.clip(ly - rows - r0, 0, n), owner), 1)
+    np.add.at(steps, (np.clip(ly + h - rows - r0, 0, n), owner), -1)
+    rvecs = np.cumsum(steps[:-1], axis=0, dtype=np.int32).astype(np.float32)  # (H, G)
     # run cols x+a..x+bcol (padded, sentinel-shifted: +1); sources at
     # padded cols [lx+1, lx+1+w)
     x = np.arange(c0, c1)[None, :]
@@ -463,17 +493,19 @@ def _edge_count_plane_rank1(shape, kernel: np.ndarray, runs, device, window) -> 
     return rmat @ cmat
 
 
-def edge_count_plane_device(shape, kernel: np.ndarray, device, window=None) -> torch.Tensor:
+def edge_count_plane_device(shape, kernel, device, window=None) -> torch.Tensor:
     """Exact ``conv2d_same(ones(shape), kernel)`` built on ``device``: the
-    rank-1 run form for {0,1} kernels, else lookups into the kernel's
-    integral image. ``window = ((r0, r1), (c0, c1))`` builds only those
-    rows and columns of the plane (a block of a sharded grid)."""
+    rank-1 run form for {0,1} kernels (a :class:`Disk` gives its runs from
+    its diameter), else lookups into the kernel's integral image. ``window
+    = ((r0, r1), (c0, c1))`` builds only those rows and columns of the plane
+    (a block of a sharded grid)."""
     with span("prep.count_plane"):
         h, w = shape
         window = ((0, h), (0, w)) if window is None else window
-        runs = _binary_kernel_runs(np.asarray(kernel)[::-1, ::-1])
+        kernel = _as_kernel(kernel)
+        runs = _kernel_runs(kernel)
         if runs is not None:
-            return _edge_count_plane_rank1(shape, kernel, runs, device, window)
+            return _edge_count_plane_rank1(shape, kernel.shape, runs, device, window)
         kernel = np.asarray(kernel, dtype=np.float64)
         kh, kw = kernel.shape
         sh, sw = (kh - 1) // 2, (kw - 1) // 2

@@ -15,7 +15,7 @@ import torch
 
 from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import as_field
-from topo_descriptors_tpu_torch.kernels.disk import circular_kernel
+from topo_descriptors_tpu_torch.kernels.disk import Disk
 from topo_descriptors_tpu_torch.ops.conv import (
     conv2d_same_multi,
     edge_count_plane_device,
@@ -57,8 +57,8 @@ def disk_descriptors(
     out_tpi = []
     out_std = []
     for size in sizes:
-        disk = circular_kernel(size)
-        ksum = float(disk.sum())
+        disk = Disk(size)
+        ksum = float(disk.taps)
         count = edge_count_plane_device(dem.shape, disk, dem.device)
         convs = conv2d_same_multi(fields, disk)
         z_conv = convs[0]

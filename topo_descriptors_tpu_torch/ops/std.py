@@ -9,7 +9,7 @@ import torch
 
 from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import as_field
-from topo_descriptors_tpu_torch.kernels.disk import circular_kernel
+from topo_descriptors_tpu_torch.kernels.disk import Disk
 from topo_descriptors_tpu_torch.ops.conv import (
     conv2d_same_multi,
     edge_count_plane_device,
@@ -40,8 +40,8 @@ def std(
     if int32_parity is None:
         int32_parity = CFG.std_int32_parity
     dem = as_field(dem, device)
-    kernel = circular_kernel(size)
-    kernel_sum = float(kernel.sum())
+    kernel = Disk(size)
+    kernel_sum = float(kernel.taps)
 
     if sigma:
         dem = gaussian_filter(dem, sigma)

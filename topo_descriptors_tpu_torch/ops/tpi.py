@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from topo_descriptors_tpu_torch.device import as_field
-from topo_descriptors_tpu_torch.kernels.disk import circular_kernel
+from topo_descriptors_tpu_torch.kernels.disk import Disk
 from topo_descriptors_tpu_torch.ops.conv import (
     conv2d_same,
     edge_count_plane_device,
@@ -34,8 +34,8 @@ def tpi(
     to the large elevation offset.
     """
     dem = as_field(dem, device)
-    kernel = circular_kernel(size, exclude_center=True)
-    kernel_sum = float(kernel.sum())
+    kernel = Disk(size, exclude_center=True)
+    kernel_sum = float(kernel.taps)
 
     if sigma:
         dem = gaussian_filter(dem, sigma)

@@ -35,7 +35,7 @@ import torch.distributed as dist
 
 from topo_descriptors_tpu_torch import ops
 from topo_descriptors_tpu_torch.device import TableCache, upload
-from topo_descriptors_tpu_torch.kernels.disk import circular_kernel
+from topo_descriptors_tpu_torch.kernels.disk import Disk
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_kernel1d, gaussian_radius
 from topo_descriptors_tpu_torch.kernels.sobel import sobel_kernel
 from topo_descriptors_tpu_torch.ops import conv as C
@@ -159,13 +159,13 @@ class ShardedOps:
         out = {b: (t - dev[b]) / std.to(t.device) for b, t in blocks.items()}
         return masked(out)
 
-    def _counts(self, shape, valid_shape, kernel: np.ndarray) -> Blocks:
+    def _counts(self, shape, valid_shape, kernel: Disk) -> Blocks:
         """Each block's slice of the exact boundary tap-count plane of the
         true grid, zero past it, built per block on its device."""
         h, w = shape[-2:]
         lh, lw = h // self.gy, w // self.gx
         vh, vw = valid_shape if valid_shape is not None else (h, w)
-        key = ("counts", (h, w), (vh, vw), kernel.tobytes(), kernel.shape)
+        key = ("counts", (h, w), (vh, vw), kernel)
 
         def build():
             out = {}
@@ -241,7 +241,7 @@ class ShardedOps:
         return blocks, masks, c
 
     @staticmethod
-    def _pads(kernel: np.ndarray):
+    def _pads(kernel: Disk):
         return C._same_pads(kernel.shape[0]), C._same_pads(kernel.shape[1])
 
     def tpi(self, x: ShardedArray, size: int, sigma: Optional[float] = None,
@@ -251,8 +251,8 @@ class ShardedOps:
         tap counts come from the true domain, and pad pixels are zeroed in
         the centred field, so they weigh as the single pass's zero
         boundary."""
-        kernel = circular_kernel(size, exclude_center=True)
-        ksum = float(kernel.sum())
+        kernel = Disk(size, exclude_center=True)
+        ksum = float(kernel.taps)
         blocks, masks, c = self._disk_prologue(x, sigma, valid_shape)
         counts = self._counts(x.shape, valid_shape, kernel)
         z = {b: t - c.to(t.device) for b, t in blocks.items()}
@@ -271,8 +271,8 @@ class ShardedOps:
             valid_shape: Optional[Tuple[int, int]] = None) -> ShardedArray:
         """Sharded rolling STD, with the mean-centred float32-stable form of
         :func:`ops.std`; ``valid_shape`` as in :meth:`tpi`."""
-        kernel = circular_kernel(size)
-        ksum = float(kernel.sum())
+        kernel = Disk(size)
+        ksum = float(kernel.taps)
         blocks, masks, c = self._disk_prologue(x, sigma, valid_shape)
         counts = self._counts(x.shape, valid_shape, kernel)
         stacks = {}
@@ -312,8 +312,8 @@ class ShardedOps:
         and TPI rides STD's intermediates. Returns ``{"tpi": (S, H, W),
         "std": (S, H, W)}``."""
         sizes = [int(s) for s in sizes]
-        disks = [circular_kernel(s) for s in sizes]
-        ksums = [float(k.sum()) for k in disks]
+        disks = [Disk(s) for s in sizes]
+        ksums = [float(k.taps) for k in disks]
         pads = [self._pads(k) for k in disks]
         ply_m, phy_m = max(p[0][0] for p in pads), max(p[0][1] for p in pads)
         plx_m, phx_m = max(p[1][0] for p in pads), max(p[1][1] for p in pads)

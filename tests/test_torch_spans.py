@@ -35,6 +35,9 @@ DRIVERS = {
     "std": ("compute_std", dict(scales=[300]),
             {"prep.kernel", "prep.runs", "prep.count_plane", "nan_pass"}),
     "sx": ("compute_sx", dict(azimuth=0, radius=300), {"prep.rays"}),
+    "valley": ("compute_valley_ridge", dict(scales=[300], mode="valley", flat_list=[0, 0.2, 0.4],
+                                            smth_factors=0.5),
+               {"smooth", "valley.scan", "nan_pass"}),
 }
 
 

@@ -10,6 +10,8 @@ hand kernel (the JAX package keeps them outside any Pallas kernel too).
 
 from __future__ import annotations
 
+import contextlib
+from time import perf_counter
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -33,8 +35,17 @@ from topo_descriptors_tpu_torch.ops.spline_rotate import (
     rotate_std_canvas_table,
     rotation_params,
 )
+from topo_descriptors_tpu_torch.utils.timing import span
 
 METHODS = ("auto", "dftmm", "direct", "fft", "stream")
+
+# What the routes did: the single-device op's calls by route ("calls.bank":
+# a precomputed bank, "calls.streamed"), the device banks and canvas stacks
+# made (on a cache miss, or in every call that caches none), and the host
+# seconds of the bank builds (scipy rotations, flat fold, staging; no
+# device sync).
+VALLEY_COUNTS = {"calls.bank": 0, "calls.streamed": 0, "builds.bank": 0, "builds.canvas": 0,
+                 "bank_build_s": 0.0}
 
 
 def bank_nbytes(size: int, n_flats: int, n_angles: int = 180) -> int:
@@ -131,14 +142,26 @@ def _scan_chunks(bank_chunks, n_flats, shape, conv_combined):
     chunk = bank_chunks.shape[1] // n_flats
     norm = torch.full(shape, -torch.inf, dtype=torch.float32, device=bank_chunks.device)
     direction = torch.zeros(shape, dtype=torch.float32, device=bank_chunks.device)
-    for i, kernels in enumerate(bank_chunks):
-        combined = conv_combined(kernels)
-        chunk_best = combined.amax(dim=0)
-        chunk_arg = combined.argmax(dim=0).to(norm.dtype)
-        greater = chunk_best > norm
-        norm = torch.where(greater, chunk_best, norm)
-        direction = torch.where(greater, i * chunk + chunk_arg, direction)
+    with span("valley.scan"):
+        for i, kernels in enumerate(bank_chunks):
+            combined = conv_combined(kernels)
+            chunk_best = combined.amax(dim=0)
+            chunk_arg = combined.argmax(dim=0).to(norm.dtype)
+            greater = chunk_best > norm
+            norm = torch.where(greater, chunk_best, norm)
+            direction = torch.where(greater, i * chunk + chunk_arg, direction)
     return [torch.clamp(norm, min=0.0), direction]
+
+
+@contextlib.contextmanager
+def _bank_build():
+    """The ``valley.bank`` span around a bank's build and staging, counted
+    as one build with its host seconds."""
+    t0 = perf_counter()
+    with span("valley.bank"):
+        yield
+    VALLEY_COUNTS["builds.bank"] += 1
+    VALLEY_COUNTS["bank_build_s"] += perf_counter() - t0
 
 
 _BANK_DEV_CACHE: dict = {}
@@ -163,10 +186,12 @@ def _valley_ridge_bank_mm(dem, bank, angle_chunk, cache_key=None,
     key = cache_key + (chunk, dem.device) if cache_key is not None else None
     bank_dev = _BANK_DEV_CACHE.get(key) if key is not None else None
     if bank_dev is None:
-        if bank is None:
-            bank = builder()
-        folded = _fold_flats_np(np.asarray(bank, dtype=np.float32))
-        bank_dev = upload(folded.reshape(a_angles // chunk, chunk * n_flats, ky, kx), dem.device)
+        with _bank_build():
+            if bank is None:
+                bank = builder()
+            folded = _fold_flats_np(np.asarray(bank, dtype=np.float32))
+            bank_dev = upload(folded.reshape(a_angles // chunk, chunk * n_flats, ky, kx),
+                              dem.device)
         if key is not None:
             _evict_to(_BANK_DEV_CACHE, 2)
             _BANK_DEV_CACHE[key] = bank_dev
@@ -222,22 +247,24 @@ def _streamed_scan(canvas_of, conv_fn, qparams, slot_angle, slot_valid,
     valid_all = upload(slot_valid.reshape(n_steps, 4 * q_batch), device)
     norm = torch.full((h, w), -torch.inf, dtype=torch.float32, device=device)
     direction = torch.zeros((h, w), dtype=torch.float32, device=device)
-    for step in range(n_steps):
-        qs = range(step * q_batch, (step + 1) * q_batch)
-        kern = torch.cat([torch.cat(canvas_variants(canvas_of(q), qparams[q]), 0) for q in qs], 0)
-        convs = conv_fn(kern).reshape(4 * q_batch, n_flats, h, w)
-        comb = convs.amax(dim=1)  # (Q*4, h, w)
-        angles, valid = angles_all[step], valid_all[step]
-        comb = torch.where(valid[:, None, None], comb, -torch.inf)
-        best = comb.amax(dim=0)
-        # min angle among the batch's argmax set
-        amin = torch.where(comb == best, angles[:, None, None], torch.inf).amin(dim=0)
-        greater = best > norm
-        equal = (best == norm) & (norm > -torch.inf)
-        direction = torch.where(
-            greater, amin, torch.where(equal, torch.minimum(direction, amin), direction)
-        )
-        norm = torch.where(greater, best, norm)
+    with span("valley.scan"):
+        for step in range(n_steps):
+            qs = range(step * q_batch, (step + 1) * q_batch)
+            kern = torch.cat([torch.cat(canvas_variants(canvas_of(q), qparams[q]), 0)
+                              for q in qs], 0)
+            convs = conv_fn(kern).reshape(4 * q_batch, n_flats, h, w)
+            comb = convs.amax(dim=1)  # (Q*4, h, w)
+            angles, valid = angles_all[step], valid_all[step]
+            comb = torch.where(valid[:, None, None], comb, -torch.inf)
+            best = comb.amax(dim=0)
+            # min angle among the batch's argmax set
+            amin = torch.where(comb == best, angles[:, None, None], torch.inf).amin(dim=0)
+            greater = best > norm
+            equal = (best == norm) & (norm > -torch.inf)
+            direction = torch.where(
+                greater, amin, torch.where(equal, torch.minimum(direction, amin), direction)
+            )
+            norm = torch.where(greater, best, norm)
     return norm, direction
 
 
@@ -274,6 +301,7 @@ def valley_ridge_streamed(
     """
     if mode not in ("valley", "ridge"):
         raise ValueError(f"Unknown mode {mode!r}")
+    VALLEY_COUNTS["calls.streamed"] += 1
     dem = _standardized(as_field(dem, device), sigma, stats)
     n_flats = len(flat_list)
     kmax, qparams, slot_angle, slot_valid, q_batch = streamed_schedule(size, n_angles, q_batch)
@@ -334,15 +362,20 @@ def quadrant_canvases(size, mode, flat_list, n_angles, q_batch, qparams, kmax, d
                 torch.device(device))
         canvases = _CANVAS_DEV_CACHE.get(ckey)
         if canvases is None:
-            tab = table()
-            canvases = torch.stack([_rotate_folded(tab, size, p, kmax) for p in qparams])
+            VALLEY_COUNTS["builds.canvas"] += 1
+            with span("valley.canvas"):
+                tab = table()
+                canvases = torch.stack([_rotate_folded(tab, size, p, kmax) for p in qparams])
             _evict_to(_CANVAS_DEV_CACHE, 2)
             _CANVAS_DEV_CACHE[ckey] = canvases
         return canvases.__getitem__
-    tab = table()
+    VALLEY_COUNTS["builds.canvas"] += 1
+    with span("valley.canvas"):
+        tab = table()
 
     def canvas_of(q):
-        return _rotate_folded(tab, size, qparams[q], kmax)
+        with span("valley.canvas"):
+            return _rotate_folded(tab, size, qparams[q], kmax)
 
     return canvas_of
 
@@ -388,6 +421,7 @@ def valley_ridge(
     ):
         return valley_ridge_streamed(dem, size, mode, flat_list, sigma, stats, device=device)
 
+    VALLEY_COUNTS["calls.bank"] += 1
     dem = _standardized(as_field(dem, device), sigma, stats)
     if method in ("auto", "dftmm"):
         if bank is None:
@@ -402,13 +436,15 @@ def valley_ridge(
             )
         return _valley_ridge_bank_mm(dem, bank, angle_chunk)
 
-    if bank is None:
-        bank = prepare_valley_bank(size, mode, flat_list)
-    bank = np.asarray(bank, dtype=np.float32)
-    a_angles, n_flats, ky, kx = bank.shape
-    while a_angles % angle_chunk:
-        angle_chunk -= 1
-    n_chunks = a_angles // angle_chunk
+    with _bank_build():
+        if bank is None:
+            bank = prepare_valley_bank(size, mode, flat_list)
+        bank = np.asarray(bank, dtype=np.float32)
+        a_angles, n_flats, ky, kx = bank.shape
+        while a_angles % angle_chunk:
+            angle_chunk -= 1
+        n_chunks = a_angles // angle_chunk
+        bank_chunks = upload(bank.reshape(n_chunks, angle_chunk * n_flats, ky, kx), dem.device)
 
     h, w = dem.shape
     if method == "fft":
@@ -429,5 +465,4 @@ def valley_ridge(
         convs = conv_chunk(kernels).reshape(-1, n_flats, h, w)
         return _flat_axis_combine(convs, axis=1).amax(dim=1)
 
-    bank_chunks = upload(bank.reshape(n_chunks, angle_chunk * n_flats, ky, kx), dem.device)
     return _scan_chunks(bank_chunks, n_flats, (h, w), conv_combined)

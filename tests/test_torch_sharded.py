@@ -173,6 +173,24 @@ def test_sharded_valley_ridge(both, dem64):
                  ops.valley_ridge(dem64, 7, "valley", [0, 0.2], device="cpu"))
 
 
+def test_sharded_valley_ridge_rotates_its_bank_on_the_device(both, dem64, monkeypatch):
+    """The mesh convolves the single-device op's own bank, rotated on each
+    block's device: no scipy rotation, one bank per device."""
+    from topo_descriptors_tpu_torch.kernels import valley as tvalley
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the mesh rotated kernels with scipy")
+
+    monkeypatch.setattr(tvalley, "rotate_kernels", refuse)
+    sops = ShardedOps(both[0].mesh)  # an empty bank cache
+    x = sops.put(dem64)
+    port = sops.valley_ridge(x, 9, "ridge", (0, 0.15, 0.3))
+    single = ops.valley_ridge(dem64, 9, "ridge", [0, 0.15, 0.3], device="cpu")
+    _hold(port[0], None, single[0], rtol=1e-4, atol=2e-3)
+    assert (np.asarray(port[1]) != single[1].numpy()).mean() < 0.02
+    assert sops._cache.builds == 1  # blocks on one device share it
+
+
 def test_sharded_valley_ridge_streamed(both, dem64):
     # size 15's rotated extent (21) exceeds the 8-row blocks: multi-hop
     sops, jsops = both

@@ -144,6 +144,20 @@ def test_tiled_valley_ridge(dem_tiny, runner, jrunner, sigma):
                   2e-3)
 
 
+def test_tiled_valley_ridge_rotates_its_bank_on_the_device(dem_tiny, runner, monkeypatch):
+    """The bands convolve the single-device op's own bank, rotated once on
+    the runner's device: no scipy rotation."""
+    from topo_descriptors_tpu_torch.kernels import valley as tvalley
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the tiled runner rotated kernels with scipy")
+
+    monkeypatch.setattr(tvalley, "rotate_kernels", refuse)
+    port = runner.valley_ridge(dem_tiny, 9, "ridge", (0, 0.15, 0.3))
+    _valley_agree(port, ops.valley_ridge(dem_tiny, 9, "ridge", [0, 0.15, 0.3], device="cpu"),
+                  2e-3)
+
+
 def test_tiled_valley_ridge_streamed_branch(dem_tiny, runner, jrunner, monkeypatch):
     """A 1-byte bank budget sends every band down the streamed route, in
     both packages: each reads its own CFG."""

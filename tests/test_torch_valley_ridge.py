@@ -6,7 +6,10 @@ Tolerances:
 * DFT conv: relative to the largest output, 1e-4 against scipy in float64
   and against the JAX op (both float32 matmul chains over ~1e2-long sums);
 * spline rotation: those of tests/test_spline_rotate.py (prefilter 1e-5 of
-  the largest value, rotated canvas atol 1e-4);
+  the largest value, rotated canvas atol 1e-4); the bank rotated on the
+  device at scipy's float64 coordinates against scipy's bank: 2e-6 absolute
+  at every angle (values reach ~2.1, float32 steps there are 2.4e-7), 6e-6
+  once folded over the flats (a sum of up to three kernels);
 * valley/ridge: norm rtol 1e-3, atol 2e-3; direction may differ only where
   the norm is near-tied between angles, on under 2% of the pixels (the
   rule of tests/test_ops.py).
@@ -301,6 +304,63 @@ def test_bank_carries_over_from_jax(dem_tiny):
         _assert_valley_close([o.numpy() for o in outs], ref)
 
 
+SCRIPT_FLATS = {"valley": [0, 0.2, 0.4], "ridge": [0, 0.15, 0.3]}
+
+
+# 153 px is the 4 km kernel of the 1-arcsecond Basodino grid: with float32
+# coordinates angles 34, 56, 124 and 146 put an edge pixel on the other side
+# of scipy's support test and differ by the kernel's largest value
+@pytest.mark.parametrize("mode", ["valley", "ridge"])
+@pytest.mark.parametrize("size", [9, 31, 153])
+def test_device_bank_equals_the_scipy_bank(size, mode):
+    host = tvr.prepare_valley_bank(size, mode, SCRIPT_FLATS[mode])
+    dev = tvr.device_valley_bank(size, mode, SCRIPT_FLATS[mode], "cpu")
+    assert dev.dtype == torch.float32 and dev.shape == host.shape
+    assert dev.shape[2:] == rotated_extent(size)
+    gap = np.abs(dev.numpy() - host).reshape(180, -1).max(axis=1)
+    assert gap.max() < 2e-6, np.flatnonzero(gap >= 2e-6)
+    assert ((dev.numpy() == 0) == (host == 0)).all()  # the same support
+    folded = tvr._fold_flats(dev).numpy()
+    np.testing.assert_allclose(folded, tvr._fold_flats_np(host), rtol=0, atol=6e-6)
+
+
+def test_rotation_params64_rounds_to_the_float32_rows():
+    kmax = max(rotated_extent(31))
+    rows = trot.rotation_params64(31, [0.0, 13.0, 45.0, 90.0, 137.0], kmax, kmax)
+    assert rows.dtype == np.float64 and rows.shape == (5, 8)
+    for row, angle in zip(rows, (0.0, 13.0, 45.0, 90.0, 137.0)):
+        np.testing.assert_allclose(row, trot.rotation_params(31, angle, kmax, kmax), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["dftmm", "direct", "fft"])
+def test_the_op_builds_its_bank_without_scipy(dem_tiny, monkeypatch, method):
+    from topo_descriptors_tpu_torch.kernels import valley as tvalley
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a bank call rotated kernels with scipy")
+
+    monkeypatch.setattr(tvalley, "rotate_kernels", refuse)
+    monkeypatch.setattr(tvr, "_BANK_DEV_CACHE", {})
+    before = tvr.VALLEY_COUNTS["builds.bank"]
+    outs = tvr.valley_ridge(dem_tiny, 9, "ridge", [0, 0.15, 0.3], method=method, device="cpu")
+    assert tvr.VALLEY_COUNTS["builds.bank"] == before + 1
+    _assert_valley_close([o.numpy() for o in outs], _oracle(dem_tiny, 9, "ridge", (0, 0.15, 0.3), None))
+
+
+@pytest.mark.parametrize("method", ["dftmm", "direct", "fft"])
+def test_a_device_bank_given_is_the_ops_own(dem_tiny, method):
+    """A tensor bank passed in (as the tiled runner passes one) is folded and
+    chunked on its device exactly as the op's own: the same planes, bit
+    for bit."""
+    tvr._BANK_DEV_CACHE.clear()
+    own = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.15, 0.3], method=method, device="cpu")
+    bank = tvr.device_valley_bank(9, "valley", [0, 0.15, 0.3], "cpu")
+    given = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.15, 0.3], bank=bank, method=method,
+                             device="cpu")
+    for a, b in zip(own, given):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
 def test_auto_routes_large_banks_to_streamed(dem_tiny, monkeypatch):
     assert tvr.bank_nbytes(15, 2) == jvr.bank_nbytes(15, 2) > 100
     monkeypatch.setattr(CFG, "valley_bank_max_bytes", 100)
@@ -320,9 +380,13 @@ def test_device_caches_are_bounded_and_keyed_on_the_device(dem_tiny):
         assert len(cache) == 2
         assert all(CPU in key and key[0] in (7, 9) for key in cache)
     hit = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.2], device="cpu")
-    miss = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.2], bank=jvr.prepare_valley_bank(
+    # the op's own bank is rotated on the device, the one given by scipy
+    given = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.2], bank=jvr.prepare_valley_bank(
         9, "valley", [0, 0.2]), device="cpu")
-    for a, b in zip(hit, miss):
+    _assert_valley_close([o.numpy() for o in hit], [o.numpy() for o in given])
+    tvr._BANK_DEV_CACHE.clear()
+    fresh = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.2], device="cpu")
+    for a, b in zip(hit, fresh):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 

@@ -14,7 +14,10 @@ TPU restructure: the reference rotates kernels *inside* its 180-iteration
 angle loop (topo.py:441-443). Here the full 180-angle bank is precomputed
 host-side once (it is tiny — 180 x n_flats x k x k floats) so the device-side
 op is a single batched convolution with a fused running max, with no host
-round-trips between angles.
+round-trips between angles. The port rotates its banks on the device
+(``ops.valley_ridge.device_valley_bank``, scipy's coordinates in float64);
+the host bank here is the JAX package's exchange format and the tests'
+reference.
 """
 
 from __future__ import annotations

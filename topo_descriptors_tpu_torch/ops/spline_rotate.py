@@ -25,7 +25,9 @@ scipy parity rules (as in the JAX module):
   :func:`~topo_descriptors_tpu_torch.ops.valley_ridge.prepare_valley_bank`
   uses.
 
-Per-angle parameters (:func:`rotation_params`) are host numpy rows.
+Per-angle parameters are host numpy rows: float32 (:func:`rotation_params`)
+for the streamed route's quadrant angles, float64 (:func:`rotation_params64`,
+scipy's own coordinates) for the bank route's 180 angles rotated at once.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from topo_descriptors_tpu_torch.device import upload
 
 _POLE = float(np.sqrt(8.0) - 3.0)
 _GAIN = float((1.0 - _POLE) * (1.0 - 1.0 / _POLE))
@@ -126,14 +130,47 @@ def _mirror_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx > n - 1, 2 * (n - 1) - idx, idx)
 
 
+def rotation_params64(size: int, angles, ky_max: int, kx_max: int) -> np.ndarray:
+    """:func:`rotation_params` of many angles as float64[A, 8] rows, in
+    ``scipy.ndimage.rotate``'s own arithmetic: cos and sin from
+    ``scipy.special.cosdg``/``sindg``, the shape from ``ptp + 0.5`` of the
+    rotated corners, the offset ``in_center - R @ out_center``. At odd
+    sizes from 153 px up, float32 coordinates move support pixels across
+    scipy's ``0 <= coord <= n-1`` test; these rows keep them where scipy
+    puts them."""
+    from scipy.special import cosdg, sindg  # host-side only
+
+    in_shape = np.array([size, size])
+    rows = []
+    for angle in angles:
+        c, s = float(cosdg(angle)), float(sindg(angle))
+        rot = np.array([[c, s], [-s, c]])
+        ky, kx = (np.ptp(rot @ [[0, 0, size, size], [0, size, 0, size]], axis=1) + 0.5).astype(int)
+        off_y, off_x = (in_shape - 1) / 2 - rot @ ((np.array([ky, kx]) - 1) / 2)
+        lo_y = (ky_max - 1) // 2 - (ky - 1) // 2
+        lo_x = (kx_max - 1) // 2 - (kx - 1) // 2
+        rows.append([c, s, off_y, off_x, lo_y, lo_x, ky, kx])
+    return np.asarray(rows, np.float64)
+
+
 def _footprints(n: int, params: np.ndarray, canvas_shape, device):
-    """(inside, ystart, xstart, wy, wx) of one angle over the canvas:
-    the support mask, the clamped footprint starts in [-1, n-2] and the
-    three quadratic B-spline weights per axis, (3, KY, KX) each."""
+    """(inside, ystart, xstart, wy, wx) over the canvas: the support mask,
+    the clamped footprint starts in [-1, n-2] and the three quadratic
+    B-spline weights per axis. ``params`` is one float32 row of
+    :func:`rotation_params` (coordinates in float32, (KY, KX) each, weights
+    (3, KY, KX)) or float64 rows of :func:`rotation_params64` (coordinates
+    in float64, (A, KY, KX) each, weights (3, A, KY, KX)); the spline
+    fractions are float32 either way."""
     ky_max, kx_max = canvas_shape
-    c, s, off_y, off_x, lo_y, lo_x, ky, kx = (float(v) for v in params)
-    oi = torch.arange(ky_max, dtype=torch.float32, device=device)[:, None].expand(ky_max, kx_max) - lo_y
-    oj = torch.arange(kx_max, dtype=torch.float32, device=device)[None, :].expand(ky_max, kx_max) - lo_x
+    if params.dtype == np.float64:
+        cols = upload(params, device)[:, :, None, None].unbind(1)
+        c, s, off_y, off_x, lo_y, lo_x, ky, kx = cols
+        oi = torch.arange(ky_max, dtype=torch.float64, device=device)[:, None] - lo_y
+        oj = torch.arange(kx_max, dtype=torch.float64, device=device)[None, :] - lo_x
+    else:
+        c, s, off_y, off_x, lo_y, lo_x, ky, kx = (float(v) for v in params)
+        oi = torch.arange(ky_max, dtype=torch.float32, device=device)[:, None].expand(ky_max, kx_max) - lo_y
+        oj = torch.arange(kx_max, dtype=torch.float32, device=device)[None, :].expand(ky_max, kx_max) - lo_x
     ycoord = c * oi + s * oj + off_y
     xcoord = -s * oi + c * oj + off_x
 
@@ -144,8 +181,8 @@ def _footprints(n: int, params: np.ndarray, canvas_shape, device):
     )
     ystart = torch.floor(ycoord + 0.5).to(torch.int64) - 1
     xstart = torch.floor(xcoord + 0.5).to(torch.int64) - 1
-    ty = ycoord - (ystart.to(torch.float32) + 1.0)
-    tx = xcoord - (xstart.to(torch.float32) + 1.0)
+    ty = (ycoord - (ystart.to(ycoord.dtype) + 1.0)).to(torch.float32)
+    tx = (xcoord - (xstart.to(xcoord.dtype) + 1.0)).to(torch.float32)
     wy = torch.stack([0.5 * (0.5 - ty) ** 2, 0.75 - ty * ty, 0.5 * (0.5 + ty) ** 2])
     wx = torch.stack([0.5 * (0.5 - tx) ** 2, 0.75 - tx * tx, 0.5 * (0.5 + tx) ** 2])
     # clamp the starts of masked-out pixels so the indices stay in range
@@ -154,12 +191,13 @@ def _footprints(n: int, params: np.ndarray, canvas_shape, device):
 
 def _restandardize(val: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
     """Masked re-standardization over the rotated support, zero outside
-    (the reference's numpy.ma recipe in plain arithmetic)."""
-    m = inside[None]
-    cnt = inside.sum().to(val.dtype)
-    mean = torch.where(m, val, 0.0).sum(dim=(1, 2), keepdim=True) / cnt
+    (the reference's numpy.ma recipe in plain arithmetic); ``val`` is
+    (..., F, KY, KX), ``inside`` (..., KY, KX)."""
+    m = inside.unsqueeze(-3)
+    cnt = m.sum(dim=(-2, -1), keepdim=True).to(val.dtype)
+    mean = torch.where(m, val, 0.0).sum(dim=(-2, -1), keepdim=True) / cnt
     anom = torch.where(m, val - mean, 0.0)
-    var = (anom * anom).sum(dim=(1, 2), keepdim=True) / cnt
+    var = (anom * anom).sum(dim=(-2, -1), keepdim=True) / cnt
     return anom * torch.rsqrt(var)
 
 
@@ -206,16 +244,16 @@ def rotate_std_canvas_table(
 ) -> torch.Tensor:
     """:func:`rotate_std_canvas` on the packed gather table: the same
     footprint indices, weights and re-standardization; the taps are summed
-    in another order."""
+    in another order. With float64 rows of :func:`rotation_params64` it
+    rotates A angles at once into an (A, F, KY, KX) stack."""
     m = n + 2
     n_flats = table.shape[1] // 9
-    ky_max, kx_max = canvas_shape
     inside, ystart, xstart, wy, wx = _footprints(n, params, canvas_shape, table.device)
     # base index into the mirror-padded (m, m) grid: +1 per axis
     idx = ((ystart + 1) * m + (xstart + 1)).reshape(-1)
-    g = table[idx].reshape(ky_max, kx_max, n_flats, 3, 3)
-    w = (wy[:, None] * wx[None, :]).permute(2, 3, 0, 1)  # (KY, KX, 3, 3)
-    val = (g * w[:, :, None]).sum(dim=(3, 4)).permute(2, 0, 1)
+    g = table[idx].reshape(*inside.shape, n_flats, 3, 3)
+    w = torch.movedim(wy[:, None] * wx[None, :], (0, 1), (-2, -1))  # (..., KY, KX, 3, 3)
+    val = torch.movedim((g * w[..., None, :, :]).sum(dim=(-2, -1)), -1, -3)
     return _restandardize(val, inside)
 
 

@@ -34,6 +34,7 @@ from topo_descriptors_tpu_torch.ops.spline_rotate import (
     quadrant_schedule,
     rotate_std_canvas_table,
     rotation_params,
+    rotation_params64,
 )
 from topo_descriptors_tpu_torch.utils.timing import span
 
@@ -42,8 +43,8 @@ METHODS = ("auto", "dftmm", "direct", "fft", "stream")
 # What the routes did: the single-device op's calls by route ("calls.bank":
 # a precomputed bank, "calls.streamed"), the device banks and canvas stacks
 # made (on a cache miss, or in every call that caches none), and the host
-# seconds of the bank builds (scipy rotations, flat fold, staging; no
-# device sync).
+# seconds of the bank builds (issuing the device rotations and flat fold,
+# or staging a bank given; no device sync).
 VALLEY_COUNTS = {"calls.bank": 0, "calls.streamed": 0, "builds.bank": 0, "builds.canvas": 0,
                  "bank_build_s": 0.0}
 
@@ -80,6 +81,27 @@ def prepare_valley_bank(
     return padded
 
 
+def _rotation_table(size: int, mode: str, flat_list: Sequence[float], device) -> torch.Tensor:
+    """The base V/U stack, spline-prefiltered on ``device`` and packed into
+    the gather table (:func:`~.spline_rotate.build_rotation_table`)."""
+    base = ridge_kernels(size, flat_list) if mode == "ridge" else valley_kernels(size, flat_list)
+    return build_rotation_table(prefilter2d_o2(upload(base.astype(np.float32), device)))
+
+
+def device_valley_bank(size: int, mode: str, flat_list: Sequence[float], device) -> torch.Tensor:
+    """:func:`prepare_valley_bank`'s (180, F, KY, KX) float32 bank, rotated
+    on ``device``: the streamed route's prefilter, gather, weights and
+    re-standardisation at scipy's float64 coordinates
+    (:func:`~.spline_rotate.rotation_params64`), all 180 angles directly,
+    as many a step as keep the gather under ``CFG.valley_chunk_bytes``."""
+    ky_max, kx_max = rotated_extent(size)
+    table = _rotation_table(size, mode, flat_list, device)
+    params = rotation_params64(size, np.arange(180), ky_max, kx_max)
+    step = max(1, CFG.valley_chunk_bytes // (ky_max * kx_max * table.shape[1] * 4))
+    return torch.cat([rotate_std_canvas_table(table, size, params[i : i + step], (ky_max, kx_max))
+                      for i in range(0, len(params), step)])
+
+
 def _flat_axis_combine(convs: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Flat-axis windowed sums of the reference's 3-D convolution.
 
@@ -102,7 +124,8 @@ def _flat_axis_combine(convs: torch.Tensor, axis: int = 0) -> torch.Tensor:
 
 def _fold_flats_np(bank: np.ndarray) -> np.ndarray:
     """:func:`_flat_axis_combine` over axis 1 of an (A, F, KY, KX) host
-    bank, in float64 (fold into the kernels for the bank route)."""
+    bank, in float64: the JAX package's host fold, which the tests hold
+    :func:`_fold_flats` to."""
     f = bank.shape[1]
     c = (f - 1) // 2
     cums = np.cumsum(bank, axis=1, dtype=np.float64)
@@ -114,6 +137,20 @@ def _fold_flats_np(bank: np.ndarray) -> np.ndarray:
             v = v - cums[:, lo - 1]
         outs.append(v)
     return np.stack(outs, axis=1).astype(np.float32)
+
+
+def _fold_flats(bank: torch.Tensor) -> torch.Tensor:
+    """:func:`_flat_axis_combine` over axis 1 of an (A, F, KY, KX) device
+    bank, in float64 (fold into the kernels for the bank route)."""
+    return _flat_axis_combine(bank.double(), 1).float()
+
+
+def _given_bank(bank, device) -> torch.Tensor:
+    """A ``bank`` passed to :func:`valley_ridge`, a host array or a tensor,
+    as float32 on ``device``."""
+    if isinstance(bank, torch.Tensor):
+        return bank.to(device, torch.float32)
+    return upload(np.asarray(bank, dtype=np.float32), device)
 
 
 def _standardized(dem: torch.Tensor, sigma, stats) -> torch.Tensor:
@@ -167,31 +204,34 @@ def _bank_build():
 _BANK_DEV_CACHE: dict = {}
 
 
-def _valley_ridge_bank_mm(dem, bank, angle_chunk, cache_key=None,
-                          bank_shape=None, builder=None):
+def _valley_ridge_bank_mm(dem, bank, angle_chunk, signature=None):
     """Precomputed-bank valley/ridge through partial-DFT matmuls.
 
-    ``cache_key`` (set when the caller built the bank from its canonical
-    (size, mode, flat_list) signature) keeps the folded, chunked bank on
-    the device across calls, keyed on the device too: the scipy rotations
-    and the upload happen once per signature."""
+    Without a ``bank``, the op's own bank of the canonical ``signature``
+    (size, mode, flat_list) is rotated on the device
+    (:func:`device_valley_bank`) and kept folded and chunked there across
+    calls, keyed on the device too. A ``bank`` given is folded on the
+    device in every call."""
     h, w = dem.shape
-    a_angles, n_flats, ky, kx = bank_shape if bank is None else bank.shape
+    if bank is None:
+        size, mode, flats = signature
+        a_angles, n_flats, (ky, kx) = 180, len(flats), rotated_extent(size)
+    else:
+        a_angles, n_flats, ky, kx = bank.shape
     plan = get_plan(h, w, ky, kx, "same", dem.device)
     # bound the (chunk*F, fh, nb) spectral transients by the chunk budget
     per_angle = plan.fh * plan.nb * 8 * n_flats
     chunk = int(max(1, min(angle_chunk, CFG.valley_chunk_bytes // per_angle)))
     while a_angles % chunk:
         chunk -= 1
-    key = cache_key + (chunk, dem.device) if cache_key is not None else None
+    key = signature + (chunk, dem.device) if bank is None else None
     bank_dev = _BANK_DEV_CACHE.get(key) if key is not None else None
     if bank_dev is None:
         with _bank_build():
             if bank is None:
-                bank = builder()
-            folded = _fold_flats_np(np.asarray(bank, dtype=np.float32))
-            bank_dev = upload(folded.reshape(a_angles // chunk, chunk * n_flats, ky, kx),
-                              dem.device)
+                bank = device_valley_bank(size, mode, flats, dem.device)
+            folded = _fold_flats(_given_bank(bank, dem.device))
+            bank_dev = folded.reshape(a_angles // chunk, chunk * n_flats, ky, kx)
         if key is not None:
             _evict_to(_BANK_DEV_CACHE, 2)
             _BANK_DEV_CACHE[key] = bank_dev
@@ -351,11 +391,6 @@ def quadrant_canvases(size, mode, flat_list, n_angles, q_batch, qparams, kmax, d
     ``device``. The stack is cached per (size, mode, flats, device) while
     it fits ``CFG.valley_canvas_cache_bytes`` (2 stacks at most); larger
     stacks are rotated inline, step by step."""
-    base = ridge_kernels(size, flat_list) if mode == "ridge" else valley_kernels(size, flat_list)
-
-    def table():
-        return build_rotation_table(prefilter2d_o2(upload(base.astype(np.float32), device)))
-
     n_flats = len(flat_list)
     if qparams.shape[0] * n_flats * kmax * kmax * 4 <= CFG.valley_canvas_cache_bytes:
         ckey = (size, mode, tuple(float(f) for f in flat_list), n_angles, n_flats, q_batch,
@@ -364,14 +399,14 @@ def quadrant_canvases(size, mode, flat_list, n_angles, q_batch, qparams, kmax, d
         if canvases is None:
             VALLEY_COUNTS["builds.canvas"] += 1
             with span("valley.canvas"):
-                tab = table()
+                tab = _rotation_table(size, mode, flat_list, device)
                 canvases = torch.stack([_rotate_folded(tab, size, p, kmax) for p in qparams])
             _evict_to(_CANVAS_DEV_CACHE, 2)
             _CANVAS_DEV_CACHE[ckey] = canvases
         return canvases.__getitem__
     VALLEY_COUNTS["builds.canvas"] += 1
     with span("valley.canvas"):
-        tab = table()
+        tab = _rotation_table(size, mode, flat_list, device)
 
     def canvas_of(q):
         with span("valley.canvas"):
@@ -386,7 +421,7 @@ def valley_ridge(
     mode: str,
     flat_list: Sequence[float] = (0, 0.15, 0.3),
     sigma: Optional[float] = None,
-    bank: Optional[np.ndarray] = None,
+    bank=None,
     method: str = "auto",
     stats: Optional[tuple] = None,
     angle_chunk: int = 30,
@@ -399,8 +434,11 @@ def valley_ridge(
     (mean, std) given), then for each integer angle a rotated-kernel 3-D
     convolution, the max over the flat variants, and a running
     strictly-greater max/argmax across angles (ties keep the earliest
-    angle). ``bank`` is an (A, F, KY, KX) numpy bank as
-    :func:`prepare_valley_bank` builds it; ``method``:
+    angle). ``bank`` is an (A, F, KY, KX) bank, a tensor as
+    :func:`device_valley_bank` builds it or a host array as
+    :func:`prepare_valley_bank` does (the JAX package's exchange format),
+    used as given; without one the bank routes rotate theirs on the device;
+    ``method``:
 
     * ``'auto'`` — streamed when the bank exceeds
       ``CFG.valley_bank_max_bytes``, else ``'dftmm'``;
@@ -424,27 +462,18 @@ def valley_ridge(
     VALLEY_COUNTS["calls.bank"] += 1
     dem = _standardized(as_field(dem, device), sigma, stats)
     if method in ("auto", "dftmm"):
-        if bank is None:
-            # canonical signature: cache the folded device bank and skip
-            # the scipy rotations on a hit
-            key = (size, mode, tuple(float(f) for f in flat_list))
-            ky, kx = rotated_extent(size)
-            return _valley_ridge_bank_mm(
-                dem, None, angle_chunk, cache_key=key,
-                bank_shape=(180, len(flat_list), ky, kx),
-                builder=lambda: prepare_valley_bank(size, mode, flat_list),
-            )
-        return _valley_ridge_bank_mm(dem, bank, angle_chunk)
+        signature = (size, mode, tuple(float(f) for f in flat_list))
+        return _valley_ridge_bank_mm(dem, bank, angle_chunk, signature)
 
     with _bank_build():
         if bank is None:
-            bank = prepare_valley_bank(size, mode, flat_list)
-        bank = np.asarray(bank, dtype=np.float32)
-        a_angles, n_flats, ky, kx = bank.shape
+            bank_dev = device_valley_bank(size, mode, flat_list, dem.device)
+        else:
+            bank_dev = _given_bank(bank, dem.device)
+        a_angles, n_flats, ky, kx = bank_dev.shape
         while a_angles % angle_chunk:
             angle_chunk -= 1
-        n_chunks = a_angles // angle_chunk
-        bank_chunks = upload(bank.reshape(n_chunks, angle_chunk * n_flats, ky, kx), dem.device)
+        bank_chunks = bank_dev.reshape(a_angles // angle_chunk, angle_chunk * n_flats, ky, kx)
 
     h, w = dem.shape
     if method == "fft":

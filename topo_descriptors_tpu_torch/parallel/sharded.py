@@ -38,13 +38,14 @@ from topo_descriptors_tpu_torch.device import TableCache, upload
 from topo_descriptors_tpu_torch.kernels.disk import Disk
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_kernel1d, gaussian_radius
 from topo_descriptors_tpu_torch.kernels.sobel import sobel_kernel
+from topo_descriptors_tpu_torch.kernels.valley import rotated_extent
 from topo_descriptors_tpu_torch.ops import conv as C
 from topo_descriptors_tpu_torch.ops.dft_conv import conv_bank, field_spectrum, get_plan
 from topo_descriptors_tpu_torch.ops.valley_ridge import (
     _flat_axis_combine,
     _scan_chunks,
     _streamed_scan,
-    prepare_valley_bank,
+    device_valley_bank,
     quadrant_canvases,
     streamed_schedule,
 )
@@ -447,23 +448,20 @@ class ShardedOps:
         return [self._wrap(x.shape, o) for o in outs]
 
     # -- valley / ridge ---------------------------------------------------------------
-    def _bank(self, size, mode, flat_list) -> np.ndarray:
-        """The (size, mode, flats) rotation bank, (A, F, KY, KX), rotated on
-        the host once."""
-        sig = (size, mode, tuple(float(f) for f in flat_list))
-        return self._cache.get(("bank",) + sig,
-                               lambda: prepare_valley_bank(size, mode, list(flat_list)))
-
-    def _bank_chunks(self, bank: np.ndarray, sig, device) -> torch.Tensor:
-        """``bank`` on ``device`` as (n_chunks, chunk * F, KY, KX)."""
+    def _bank_chunks(self, size, mode, flat_list, device) -> torch.Tensor:
+        """The (size, mode, flats) rotation bank, rotated on ``device`` once
+        (:func:`~..ops.valley_ridge.device_valley_bank`), as (n_chunks,
+        chunk * F, KY, KX)."""
 
         def build():
+            bank = device_valley_bank(size, mode, flat_list, device)
             a, f, ky, kx = bank.shape
             chunk = VALLEY_ANGLE_CHUNK
             while a % chunk:
                 chunk -= 1
-            return upload(bank.reshape(a // chunk, chunk * f, ky, kx), device)
+            return bank.reshape(a // chunk, chunk * f, ky, kx)
 
+        sig = (size, mode, tuple(float(f) for f in flat_list))
         return self._cache.get(("bank_chunks",) + sig + (torch.device(device),), build)
 
     def valley_ridge(self, x: ShardedArray, size: int, mode: str,
@@ -486,13 +484,11 @@ class ShardedOps:
             blocks = self._gaussian_blocks(blocks, sigma, valid=valid_shape)
         blocks = self._standardize(blocks, valid_shape)
         lh, lw = x.block_shape
-        bank = self._bank(size, mode, flat_list)
-        ky, kx = bank.shape[-2:]
+        ky, kx = rotated_extent(size)
         padded = exchange_halo(blocks, self.mesh, C._same_pads(ky), C._same_pads(kx), "zero")
         outs = [{}, {}]
         for b, field in padded.items():
-            chunks = self._bank_chunks(bank, (size, mode, tuple(map(float, flat_list))),
-                                       field.device)
+            chunks = self._bank_chunks(size, mode, flat_list, field.device)
 
             def conv_combined(kernels, field=field):
                 convs = C.conv2d_bank_rowchan(field, kernels, padding="valid")

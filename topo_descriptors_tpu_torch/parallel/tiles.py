@@ -40,7 +40,7 @@ from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import resolve_device
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_radius
 from topo_descriptors_tpu_torch.kernels.valley import rotated_extent
-from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes, prepare_valley_bank
+from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes, device_valley_bank
 
 logger = logging.getLogger(__name__)
 
@@ -517,18 +517,19 @@ class TiledRunner:
         the global float64 :meth:`_field_stats` of the (smoothed) field.
 
         Within ``CFG.valley_bank_max_bytes`` the rotated bank is built once
-        on the host and every band convolves it; above it each band runs
-        the streamed on-device rotation (:func:`ops.valley_ridge` routes a
-        bank-less call there). The bank is passed rather than left to the
-        op's device cache: band windows of different heights get different
-        angle chunks, hence different cache keys, and would rebuild it."""
+        on the device (:func:`~..ops.valley_ridge.device_valley_bank`) and
+        every band convolves it; above it each band runs the streamed
+        on-device rotation (:func:`ops.valley_ridge` routes a bank-less call
+        there). The bank is passed rather than left to the op's device
+        cache: band windows of different heights get different angle
+        chunks, hence different cache keys, and would rebuild it."""
         if mode not in ("valley", "ridge"):
             raise ValueError(f"Unknown mode {mode!r}")
         ky, _ = rotated_extent(size)
         halo = ky // 2 + 1 + (gaussian_radius(sigma) if sigma else 0)
         bank = None
         if bank_nbytes(size, len(flat_list)) <= CFG.valley_bank_max_bytes:
-            bank = prepare_valley_bank(size, mode, tuple(flat_list))
+            bank = device_valley_bank(size, mode, flat_list, self.device)
         stats = self._field_stats(dem, sigma)
 
         def fn(window, rows, meta):

@@ -83,7 +83,7 @@ SPANS = (
     "prep.table",  # device.TableCache: lookup, and on a miss build and upload
     "prep.rays",  # kernels.sx_geometry: Sx ray offsets and distances
     "smooth",  # ops.conv: Gaussian taps and the separable passes' launches
-    "valley.bank",  # ops.valley_ridge: a bank's scipy rotations, flat fold and upload
+    "valley.bank",  # ops.valley_ridge: a bank's device rotations and flat fold
     "valley.canvas",  # ops.valley_ridge: the streamed route's canvas rotations
     "valley.scan",  # ops.valley_ridge: the angle-chunk or quadrant loop's launches
 )

@@ -2541,7 +2541,7 @@ def print_routes(dem_ds, shape, cal, smi_line):
     rates = dict(mm_macs_per_sec=cal["mm_macs_per_sec"], fft_sec_per_pt=cal["fft_sec_per_pt"])
     for scale in SCALES_METERS[3:]:
         size, kmax = valley_px(dem_ds, scale)
-        if vr.bank_nbytes(size, len(VALLEY_FLATS)) <= CFG.valley_bank_max_bytes:
+        if vr.bank_fits(size, len(VALLEY_FLATS)):
             print(f"[calib] {scale} m ({size} px) on {shape}: the bank route (dftmm)")
             continue
         t_mm, t_fft = dft_conv.route_seconds(*shape, kmax, kmax, **rates)
@@ -2632,12 +2632,12 @@ def batch_names():
     from topo_descriptors_tpu_torch.examples.compute_topo_descriptors import SCALES_METERS
 
     scales = list(SCALES_METERS)
-    names = [p._dem_name(s) for s in scales]
-    names += [p._tpi_name(s, None) for s in scales] + [p._tpi_name(s, 1) for s in scales]
-    names += [n for s in scales for n in p._gradient_names(s, 1)]
-    names += [p._std_name(s, None) for s in scales]
+    names = [n for s in scales for n in p._dem_outputs(s)[0]]
+    names += [p._disk_name("tpi", s, f) for f in (None, 1) for s in scales]
+    names += [n for s in scales for n in p._gradient_outputs(s, 1)[0]]
+    names += [p._disk_name("std", s, None) for s in scales]
     for mode in ("valley", "ridge"):
-        names += [n.upper() for s in scales[3:] for n in p._valley_ridge_names(s, mode, 0.5)]
+        names += [n.upper() for s in scales[3:] for n in p._valley_ridge_outputs(s, mode, 0.5)[0]]
     return names + [p._sx_name(1000, 0)]
 
 

@@ -290,3 +290,64 @@ def test_tiled_runner_on_another_device_refused(dem_with_holes, tmp_path):
     runner.device = torch.device("meta")  # a runner bound to another device
     with pytest.raises(ValueError, match="TiledRunner"):
         tpipe.compute_tpi(dem, [100], outdir=tmp_path, sharded=runner, device="cpu")
+
+
+# the names through which the benchmark's fault checks reach the in-memory
+# drivers (portbench/faults.py): (driver, scales, calls through ops.tpi and
+# ops.disk_descriptors); every plane comes back through pipeline._to_host
+SEAMS = {
+    "tpi_one_scale": ("compute_tpi", [300], {"tpi": 1, "disk_descriptors": 0}),
+    "tpi_fused": ("compute_tpi", [100, 300], {"tpi": 0, "disk_descriptors": 1}),
+    "std": ("compute_std", [300], {"tpi": 0, "disk_descriptors": 0}),
+}
+
+
+@pytest.mark.parametrize("case", list(SEAMS))
+def test_drivers_resolve_the_benchmark_seams_at_call_time(case, dem_with_holes, monkeypatch):
+    """``pipeline._to_host``, ``ops.tpi`` and ``ops.disk_descriptors``
+    patched after import are the ones the drivers call, and what
+    ``_to_host`` hands back is what gets written: here one pixel raised by
+    1 in every plane."""
+    from topo_descriptors_tpu_torch import ops
+
+    ind_nans, dem = dem_with_holes
+    driver, scales, expected = SEAMS[case]
+    written = {}
+
+    def to_netcdf(array, dem_ds, name, crop=None, outdir=".", units=None):
+        written[name] = np.array(array)
+        return name
+
+    monkeypatch.setattr(tpipe, "to_netcdf", to_netcdf)
+    getattr(tpipe, driver)(dem, scales, ind_nans=ind_nans, device="cpu")
+    plain, written = written, {}
+
+    calls = {"tpi": 0, "disk_descriptors": 0, "_to_host": 0}
+
+    def counted(owner, name, alter=None):
+        original = getattr(owner, name)
+
+        def seam(*args, **kwargs):
+            calls[name] += 1
+            out = original(*args, **kwargs)
+            return out if alter is None else alter(out)
+
+        monkeypatch.setattr(owner, name, seam)
+
+    def raised(out):
+        out = np.array(out)
+        out[..., out.shape[-2] // 2, out.shape[-1] // 2] += 1.0
+        return out
+
+    counted(ops, "tpi")
+    counted(ops, "disk_descriptors")
+    counted(tpipe, "_to_host", raised)
+    names = getattr(tpipe, driver)(dem, scales, ind_nans=ind_nans, device="cpu")
+    assert names == list(plain) == list(written)
+    assert calls == dict(expected, _to_host=1)
+    for name, plane in written.items():
+        diff = plane - plain[name]
+        h, w = plane.shape
+        assert diff[h // 2, w // 2] == pytest.approx(1.0, abs=1e-3)
+        diff[h // 2, w // 2] = 0.0
+        assert not np.nanmax(np.abs(diff))

@@ -21,6 +21,8 @@ truncation against JAX as well. Against the port's single pass every
 tolerance is test_sharded.py's.
 """
 
+import importlib
+
 import jax
 import numpy as np
 import pytest
@@ -31,8 +33,11 @@ from topo_descriptors_tpu.parallel.mesh import make_mesh as jmake_mesh
 from topo_descriptors_tpu.parallel.mesh import pad_to_mesh as jpad_to_mesh
 from topo_descriptors_tpu.parallel.sharded import ShardedOps as JShardedOps
 from topo_descriptors_tpu_torch import ops
+from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.host import sx_offsets, sx_sweep_offsets
 from topo_descriptors_tpu_torch.parallel import ShardedOps, make_mesh, pad_to_mesh
+
+tvr = importlib.import_module("topo_descriptors_tpu_torch.ops.valley_ridge")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -191,13 +196,22 @@ def test_sharded_valley_ridge_rotates_its_bank_on_the_device(both, dem64, monkey
     assert sops._cache.builds == 1  # blocks on one device share it
 
 
-def test_sharded_valley_ridge_streamed(both, dem64):
-    # size 15's rotated extent (21) exceeds the 8-row blocks: multi-hop
+@pytest.mark.parametrize("entry", ["valley_ridge_streamed", "valley_ridge"],
+                         ids=["streamed", "routed-past-the-budget"])
+def test_sharded_valley_ridge_streamed(both, dem64, entry, monkeypatch):
+    # size 15's rotated extent (21) exceeds the 8-row blocks: multi-hop. With
+    # the budget just below the bank, valley_ridge routes itself to the
+    # streamed method, as ops.valley_ridge does
     sops, jsops = both
+    if entry == "valley_ridge":
+        monkeypatch.setattr(CFG, "valley_bank_max_bytes", tvr.bank_nbytes(15, 2) - 1)
     x, jx, _ = _put_both(sops, jsops, dem64)
-    _hold_valley(sops.valley_ridge_streamed(x, 15, "valley", (0, 0.2)),
-                 jsops.valley_ridge_streamed(jx, 15, "valley", (0, 0.2)),
+    port = getattr(sops, entry)(x, 15, "valley", (0, 0.2))
+    _hold_valley(port, jsops.valley_ridge_streamed(jx, 15, "valley", (0, 0.2)),
                  ops.valley_ridge_streamed(dem64, 15, "valley", [0, 0.2], device="cpu"))
+    if entry == "valley_ridge":
+        for routed, streamed in zip(port, sops.valley_ridge_streamed(x, 15, "valley", (0, 0.2))):
+            _same_bits(routed, streamed.numpy())
 
 
 def test_sharded_valley_ridge_streamed_ragged_smoothed(both):

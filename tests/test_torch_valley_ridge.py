@@ -44,6 +44,23 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
 
+def _fold_flats_np(bank: np.ndarray) -> np.ndarray:
+    """The flat-axis windowed sums of ``tvr._flat_axis_combine`` over axis 1
+    of an (A, F, KY, KX) host bank, in float64: the JAX package's host
+    fold, the reference for the port's device fold ``tvr._fold_flats``."""
+    f = bank.shape[1]
+    c = (f - 1) // 2
+    cums = np.cumsum(bank, axis=1, dtype=np.float64)
+    outs = []
+    for i in range(f):
+        lo, hi = max(0, i + c - f + 1), min(f - 1, i + c)
+        v = cums[:, hi]
+        if lo > 0:
+            v = v - cums[:, lo - 1]
+        outs.append(v)
+    return np.stack(outs, axis=1).astype(np.float32)
+
+
 def _assert_valley_close(outs, refs):
     norm, direction = (np.asarray(o) for o in outs)
     np.testing.assert_allclose(norm, np.asarray(refs[0]), **NORM_TOL)
@@ -295,7 +312,8 @@ def test_streamed_inline_rotation_equals_cached(dem_tiny, monkeypatch):
 def test_bank_carries_over_from_jax(dem_tiny):
     bank = jvr.prepare_valley_bank(9, "valley", [0, 0.15, 0.3])
     np.testing.assert_array_equal(tvr.prepare_valley_bank(9, "valley", [0, 0.15, 0.3]), bank)
-    np.testing.assert_array_equal(tvr._fold_flats_np(bank), jvr._fold_flats_np(bank))
+    np.testing.assert_array_equal(_fold_flats_np(bank), jvr._fold_flats_np(bank))
+    np.testing.assert_array_equal(tvr._fold_flats(_t(bank)).numpy(), jvr._fold_flats_np(bank))
     for method in ("dftmm", "direct", "fft"):
         outs = tvr.valley_ridge(dem_tiny, 9, "valley", [0, 0.15, 0.3], bank=bank, method=method,
                                 device="cpu")
@@ -321,7 +339,7 @@ def test_device_bank_equals_the_scipy_bank(size, mode):
     assert gap.max() < 2e-6, np.flatnonzero(gap >= 2e-6)
     assert ((dev.numpy() == 0) == (host == 0)).all()  # the same support
     folded = tvr._fold_flats(dev).numpy()
-    np.testing.assert_allclose(folded, tvr._fold_flats_np(host), rtol=0, atol=6e-6)
+    np.testing.assert_allclose(folded, _fold_flats_np(host), rtol=0, atol=6e-6)
 
 
 def test_rotation_params64_rounds_to_the_float32_rows():

@@ -57,6 +57,14 @@ def bank_nbytes(size: int, n_flats: int, n_angles: int = 180) -> int:
     return n_angles * n_flats * ky * kx * 4
 
 
+def bank_fits(size: int, n_flats: int) -> bool:
+    """Whether a (size, n_flats) valley/ridge call convolves a precomputed
+    rotation bank (within ``CFG.valley_bank_max_bytes``) or streams its
+    rotations: the one route decision of :func:`valley_ridge`,
+    ``TiledRunner.valley_ridge`` and ``ShardedOps.valley_ridge``."""
+    return bank_nbytes(size, n_flats) <= CFG.valley_bank_max_bytes
+
+
 def prepare_valley_bank(
     size: int,
     mode: str,
@@ -120,23 +128,6 @@ def _flat_axis_combine(convs: torch.Tensor, axis: int = 0) -> torch.Tensor:
         upper = cums.select(axis, hi)
         outs.append(upper if lo == 0 else upper - cums.select(axis, lo - 1))
     return torch.stack(outs, dim=axis)
-
-
-def _fold_flats_np(bank: np.ndarray) -> np.ndarray:
-    """:func:`_flat_axis_combine` over axis 1 of an (A, F, KY, KX) host
-    bank, in float64: the JAX package's host fold, which the tests hold
-    :func:`_fold_flats` to."""
-    f = bank.shape[1]
-    c = (f - 1) // 2
-    cums = np.cumsum(bank, axis=1, dtype=np.float64)
-    outs = []
-    for i in range(f):
-        lo, hi = max(0, i + c - f + 1), min(f - 1, i + c)
-        v = cums[:, hi]
-        if lo > 0:
-            v = v - cums[:, lo - 1]
-        outs.append(v)
-    return np.stack(outs, axis=1).astype(np.float32)
 
 
 def _fold_flats(bank: torch.Tensor) -> torch.Tensor:
@@ -454,8 +445,7 @@ def valley_ridge(
     if method not in METHODS:
         raise ValueError(f"unknown valley/ridge method {method!r}: expected one of {METHODS}")
     if bank is None and (
-        method == "stream"
-        or (method == "auto" and bank_nbytes(size, len(flat_list)) > CFG.valley_bank_max_bytes)
+        method == "stream" or (method == "auto" and not bank_fits(size, len(flat_list)))
     ):
         return valley_ridge_streamed(dem, size, mode, flat_list, sigma, stats, device=device)
 

@@ -45,6 +45,7 @@ from topo_descriptors_tpu_torch.ops.valley_ridge import (
     _flat_axis_combine,
     _scan_chunks,
     _streamed_scan,
+    bank_fits,
     device_valley_bank,
     quadrant_canvases,
     streamed_schedule,
@@ -472,9 +473,14 @@ class ShardedOps:
         'same' anchor, then the row-channel library convolution
         (:func:`~..ops.conv.conv2d_bank_rowchan`, ``padding='valid'``) of
         each extended block, ``VALLEY_ANGLE_CHUNK`` angles at a time, with
-        the running strictly-greater max/argmax. ``valid_shape`` serves
-        ragged grids: masked statistics, pad pixels zeroed after
-        standardizing; a pre-smooth reflects at the true edge."""
+        the running strictly-greater max/argmax. A bank past
+        ``CFG.valley_bank_max_bytes`` (``bank_fits``) runs
+        :meth:`valley_ridge_streamed` instead, as the single-device op
+        does. ``valid_shape`` serves ragged grids: masked statistics, pad
+        pixels zeroed after standardizing; a pre-smooth reflects at the
+        true edge."""
+        if not bank_fits(size, len(flat_list)):
+            return self.valley_ridge_streamed(x, size, mode, flat_list, sigma, valid_shape)
         self._check(x)
         if mode not in ("valley", "ridge"):
             raise ValueError(f"Unknown mode {mode!r}")

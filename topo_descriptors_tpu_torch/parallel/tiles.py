@@ -36,11 +36,10 @@ import numpy as np
 import torch
 
 from topo_descriptors_tpu_torch import ops
-from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.device import resolve_device
 from topo_descriptors_tpu_torch.kernels.gaussian import gaussian_radius
 from topo_descriptors_tpu_torch.kernels.valley import rotated_extent
-from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes, device_valley_bank
+from topo_descriptors_tpu_torch.ops.valley_ridge import bank_fits, device_valley_bank
 
 logger = logging.getLogger(__name__)
 
@@ -528,7 +527,7 @@ class TiledRunner:
         ky, _ = rotated_extent(size)
         halo = ky // 2 + 1 + (gaussian_radius(sigma) if sigma else 0)
         bank = None
-        if bank_nbytes(size, len(flat_list)) <= CFG.valley_bank_max_bytes:
+        if bank_fits(size, len(flat_list)):
             bank = device_valley_bank(size, mode, flat_list, self.device)
         stats = self._field_stats(dem, sigma)
 

@@ -31,6 +31,13 @@ ingest_sharded`), run the descriptors as
 :class:`~topo_descriptors_tpu_torch.parallel.ShardedOps` methods and
 stream the outputs back to NetCDF in row bands, through the same aborting
 writers.
+
+Both families take their scales, names, units and Sx rays from the recipe
+in :mod:`.pipeline`; they differ from the in-memory drivers in their
+backend and in their emit step (:func:`_stream_to`). One difference of
+plan stays: under ``skip_existing`` a streamed TPI/STD driver reruns every
+kind of a scale that misses any, where the in-memory one runs only the
+missing kinds.
 """
 
 from __future__ import annotations
@@ -39,28 +46,27 @@ import contextlib
 import functools
 import logging
 from pathlib import Path
-from typing import Optional, Union
+from typing import List, Union
 
 import numpy as np
 
-from topo_descriptors_tpu_torch import geo
-from topo_descriptors_tpu_torch.config import CFG
 from topo_descriptors_tpu_torch.grid import check_dem
 from topo_descriptors_tpu_torch.io.netcdf import RasterBandWriter
 from topo_descriptors_tpu_torch.io.windowed import DemWindowReader
-from topo_descriptors_tpu_torch.kernels.sx_geometry import sx_offsets, sx_sweep_offsets
-from topo_descriptors_tpu_torch.ops.valley_ridge import bank_nbytes
 from topo_descriptors_tpu_torch.parallel.runtime import ingest_sharded
 from topo_descriptors_tpu_torch.parallel.tiles import LockedReader, TiledRunner
 from topo_descriptors_tpu_torch.pipeline import (
     _as_list,
-    _dem_name,
-    _existing,
-    _gradient_names,
-    _std_name,
+    _dem_outputs,
+    _disk_name,
+    _gradient_outputs,
+    _on_disk,
+    _Padded,
+    _per_scale,
+    _scales,
     _sx_name,
-    _tpi_name,
-    _valley_ridge_names,
+    _sx_rays,
+    _valley_ridge_outputs,
 )
 from topo_descriptors_tpu_torch.utils.timing import timer
 
@@ -136,6 +142,15 @@ def _writers(dem, names, outdir, units):
         logger.info(f"saved: {path}")
 
 
+def _stream_to(dem, names, units, outdir, reassign_nans, run) -> List[Path]:
+    """The emit step of both streamed families: ``run(sinks)`` feeds one
+    band sink per output (:class:`_Sink`) through writers that are all
+    aborted if anything fails; the paths written."""
+    with _writers(dem, names, outdir, units) as opened:
+        run([_Sink(writer, dem, reassign_nans) for _, writer in opened])
+    return [path for path, _ in opened]
+
+
 def _streams(driver):
     """Run ``driver`` on ``open_dem(dem)``; a reader opened here from a path
     is closed when the driver returns or raises."""
@@ -152,11 +167,23 @@ def _streams(driver):
     return run
 
 
-def _skip(name, outdir, skip_existing) -> Optional[Path]:
-    if skip_existing and (path := _existing(name, outdir)):
-        logger.info(f"skipping existing {path}")
-        return path
-    return None
+def _stream_disk_groups(plan, kinds, outdir, skip_existing, group):
+    """Every path of a streamed TPI/STD call, kind-major. The scales not
+    all on disk run by pre-smooth sigma, every kind of each: ``group(sigma,
+    idxs, names)`` writes one group's outputs (kind-major, then scale) and
+    returns their paths."""
+    written, groups = {}, {}
+    for i, sigma in enumerate(plan.sigmas):
+        names = [_disk_name(k, plan.meters[i], plan.factors[i]) for k in kinds]
+        if paths := _on_disk(names, outdir, skip_existing):
+            written.update({(k, i): p for k, p in zip(kinds, paths)})
+        else:
+            groups.setdefault(sigma, []).append(i)
+    for sigma, idxs in groups.items():
+        keys = [(k, i) for k in kinds for i in idxs]
+        names = [_disk_name(k, plan.meters[i], plan.factors[i]) for k, i in keys]
+        written.update(zip(keys, group(sigma, idxs, names)))
+    return [written[(k, i)] for k in kinds for i in range(len(plan.meters))]
 
 
 @_streams
@@ -164,23 +191,15 @@ def compute_dem(dem, scales, outdir=".", tile_rows: int = 4096, reassign_nans: b
                 skip_existing: bool = False, pipeline: bool = True, device="cuda"):
     """Streamed smoothed-DEM driver (reference compute_dem, topo.py:16-59)."""
     runner = TiledRunner(tile_rows, pipeline, device)
-    check_dem(dem)
     logger.info(f"***Streaming dem computation for scales {scales} meters***")
-    scales = _as_list(scales)
-    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
-    sigmas = scales_pxl / CFG.scale_std
+    plan = _scales(dem, scales)
 
-    written = []
-    for idx, sigma in enumerate(sigmas):
-        name = _dem_name(scales[idx])
-        if path := _skip(name, outdir, skip_existing):
-            written.append(path)
-            continue
-        with timer(f"dem scale {scales[idx]}m streamed"), \
-                _writers(dem, [name], outdir, ["m"]) as opened:
-            runner.gaussian(dem, float(sigma), sink=_Sink(opened[0][1], dem, reassign_nans))
-        written.append(opened[0][0])
-    return written
+    def run(i, names, units):
+        with timer(f"dem scale {plan.meters[i]}m streamed"):
+            return _stream_to(dem, names, units, outdir, reassign_nans, lambda sinks:
+                              runner.gaussian(dem, plan.sigmas[i], sink=sinks[0]))
+
+    return _per_scale(map(_dem_outputs, plan.meters), outdir, skip_existing, run)
 
 
 @_streams
@@ -191,48 +210,24 @@ def _compute_disk_family(dem, scales, smth_factors, kinds, outdir, tile_rows, re
     (descriptor, scale) output of the group (``TiledRunner.disk_descriptors``);
     a lone (scale, kind) runs ``TiledRunner.tpi`` or ``.std``."""
     runner = TiledRunner(tile_rows, pipeline, device)
-    check_dem(dem)
-    scales = _as_list(scales)
-    smth_factors = _as_list(smth_factors, len(scales))
-    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
-    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
-    namers = {"tpi": _tpi_name, "std": _std_name}
+    plan = _scales(dem, scales, smth_factors)
 
-    written = {}
-    pending = []
-    for idx in range(len(scales)):
-        done = True
-        for kind in kinds:
-            if path := _skip(namers[kind](scales[idx], smth_factors[idx]), outdir, skip_existing):
-                written[(kind, idx)] = path
-            else:
-                done = False
-        if not done:
-            pending.append(idx)
+    def group(sigma, idxs, names):
+        sizes = [plan.sizes[i] for i in idxs]
 
-    groups = {}
-    for idx in pending:
-        groups.setdefault(sigmas[idx], []).append(idx)
-
-    for sigma, idxs in groups.items():
-        sizes = [int(scales_pxl[i]) for i in idxs]
-        names = [namers[k](scales[i], smth_factors[i]) for k in kinds for i in idxs]
-        with timer(f"{'+'.join(kinds)} x{len(idxs)} scales streamed"), \
-                _writers(dem, names, outdir, ["m"] * len(names)) as opened:
-            sinks = [_Sink(w, dem, reassign_nans) for _, w in opened]
+        def run(sinks):
             if len(idxs) == 1 and len(kinds) == 1:
-                op = runner.tpi if kinds[0] == "tpi" else runner.std
-                op(dem, sizes[0], sigma, sink=sinks[0])
+                getattr(runner, kinds[0])(dem, sizes[0], sigma, sink=sinks[0])
             else:
                 runner.disk_descriptors(
                     dem, sizes, sigma, compute_tpi="tpi" in kinds, compute_std="std" in kinds,
                     sinks={k: sinks[j * len(idxs):(j + 1) * len(idxs)]
-                           for j, k in enumerate(kinds)},
-                )
-        for j, kind in enumerate(kinds):
-            for i, idx in enumerate(idxs):
-                written[(kind, idx)] = opened[j * len(idxs) + i][0]
-    return [written[(k, i)] for k in kinds for i in range(len(scales))]
+                           for j, k in enumerate(kinds)})
+
+        with timer(f"{'+'.join(kinds)} x{len(idxs)} scales streamed"):
+            return _stream_to(dem, names, ["m"] * len(names), outdir, reassign_nans, run)
+
+    return _stream_disk_groups(plan, kinds, outdir, skip_existing, group)
 
 
 def compute_tpi(dem, scales, smth_factors=None, outdir=".", tile_rows: int = 4096,
@@ -272,27 +267,18 @@ def compute_gradient(dem, scales, sig_ratios=1, outdir=".", tile_rows: int = 409
     topo.py:534-594): the four outputs of a band come from one device call
     and go to four band writers."""
     runner = TiledRunner(tile_rows, pipeline, device)
-    check_dem(dem)
     logger.info(f"***Streaming gradients computation for scales {scales} meters***")
-    scales = _as_list(scales)
-    sig_ratios = _as_list(sig_ratios, len(scales))
-    scales_pxl, res_meters = geo.scale_to_pixel(scales, dem)
-    sigmas = scales_pxl / CFG.scale_std
+    plan = _scales(dem, scales)
+    sig_ratios = _as_list(sig_ratios, len(plan.meters))
 
-    written = []
-    for idx, sigma in enumerate(sigmas):
-        names = _gradient_names(scales[idx], sig_ratios[idx])
-        paths = [_existing(n, outdir) for n in names]
-        if skip_existing and all(paths):
-            logger.info(f"skipping existing {paths}")
-            written.extend(paths)
-            continue
-        with timer(f"gradient scale {scales[idx]}m streamed"), \
-                _writers(dem, names, outdir, ["1", "1", "degree", "degree"]) as opened:
-            runner.gradient(dem, float(sigma), res_meters, sig_ratios[idx],
-                            sinks=[_Sink(w, dem, reassign_nans) for _, w in opened])
-        written.extend(path for path, _ in opened)
-    return written
+    def run(i, names, units):
+        with timer(f"gradient scale {plan.meters[i]}m streamed"):
+            return _stream_to(dem, names, units, outdir, reassign_nans, lambda sinks:
+                              runner.gradient(dem, plan.sigmas[i], plan.res, sig_ratios[i],
+                                              sinks=sinks))
+
+    outputs = [_gradient_outputs(m, r) for m, r in zip(plan.meters, sig_ratios)]
+    return _per_scale(outputs, outdir, skip_existing, run)
 
 
 @_streams
@@ -303,27 +289,17 @@ def compute_valley_ridge(dem, scales, mode: str, flat_list=(0, 0.15, 0.3), smth_
     topo.py:317-386). The global standardization stats come from a
     band-wise float64 host pass over the (optionally smoothed) field."""
     runner = TiledRunner(tile_rows, pipeline, device)
-    check_dem(dem)
     logger.info(f"***Streaming {mode} index computation for scales {scales} meters***")
-    scales = _as_list(scales)
-    smth_factors = _as_list(smth_factors, len(scales))
-    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
-    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
+    plan = _scales(dem, scales, smth_factors)
 
-    written = []
-    for idx, scale_pxl in enumerate(scales_pxl):
-        names = _valley_ridge_names(scales[idx], mode, smth_factors[idx])
-        paths = [_existing(n, outdir) for n in names]
-        if skip_existing and all(paths):
-            logger.info(f"skipping existing {paths}")
-            written.extend(paths)
-            continue
-        with timer(f"{mode} scale {scales[idx]}m streamed"), \
-                _writers(dem, names, outdir, ["1", "1"]) as opened:
-            runner.valley_ridge(dem, int(scale_pxl), mode, list(flat_list), sigmas[idx],
-                                sinks=[_Sink(w, dem, reassign_nans) for _, w in opened])
-        written.extend(path for path, _ in opened)
-    return written
+    def run(i, names, units):
+        with timer(f"{mode} scale {plan.meters[i]}m streamed"):
+            return _stream_to(dem, names, units, outdir, reassign_nans, lambda sinks:
+                              runner.valley_ridge(dem, plan.sizes[i], mode, list(flat_list),
+                                                  plan.sigmas[i], sinks=sinks))
+
+    outputs = [_valley_ridge_outputs(m, mode, f) for m, f in zip(plan.meters, plan.factors)]
+    return _per_scale(outputs, outdir, skip_existing, run)
 
 
 @_streams
@@ -342,52 +318,48 @@ def compute_sx(dem, azimuths, radius: float, height: float = 10.0, azimuth_arc: 
     check_dem(dem)
     azimuths = _as_list(azimuths)
     names = [_sx_name(radius, a) for a in azimuths]
-    if skip_existing and all(_existing(n, outdir) for n in names):
-        return [_existing(n, outdir) for n in names]
+    if paths := _on_disk(names, outdir, skip_existing):
+        return paths
     logger.info(f"***Streaming Sx for azimuths {azimuths} and radius {radius}***")
-    _, res_meters = geo.scale_to_pixel(radius, dem)
-    dx = float(res_meters["x"].mean())
-    dy = float(res_meters["y"].mean())
+    one = len(azimuths) == 1
+    rays = _sx_rays(dem, azimuths[0] if one else azimuths, radius, azimuth_arc, azimuth_steps,
+                    radius_min)
 
-    with timer(f"sx {len(azimuths)} azimuths r {radius}m streamed"), \
-            _writers(dem, names, outdir, ["degree"] * len(names)) as opened:
-        sinks = [_Sink(w, dem, reassign_nans) for _, w in opened]
-        if len(azimuths) == 1:
-            offsets, distances, border = sx_offsets(
-                azimuths[0], radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
-            runner.sx(dem, offsets, distances, border, height, sink=sinks[0])
+    def run(sinks):
+        if one:
+            runner.sx(dem, *rays, height, sink=sinks[0])
         else:
-            offsets, distances, border = sx_sweep_offsets(
-                azimuths, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
-            runner.sx_sweep(dem, offsets, distances, border, height, sink=_StackSink(sinks))
-    return [path for path, _ in opened]
+            runner.sx_sweep(dem, *rays, height, sink=_StackSink(sinks))
+
+    with timer(f"sx {len(azimuths)} azimuths r {radius}m streamed"):
+        return _stream_to(dem, names, ["degree"] * len(names), outdir, reassign_nans, run)
 
 
 # --- windowed ingest -> device mesh ------------------------------------------
 
 
-def _fetch_banded(arr, valid_shape, sink, band_rows: int = 2048):
-    """Stream a sharded (H, W) array to ``sink`` in row bands, the ragged
-    pad cropped; no host array of the whole grid."""
-    vh, vw = valid_shape
-    for r0 in range(0, vh, band_rows):
-        sink(r0, arr[r0 : min(r0 + band_rows, vh), :vw])
-
-
 def _ingest(dem, sops, fill):
-    """(DEM on the mesh, valid_shape, ``valid_shape=`` for a padded grid)."""
+    """``(ops, DEM on the mesh, valid_shape)``; on a grid padded to the
+    mesh, ``ops`` passes ``valid_shape`` to every method (as the in-memory
+    drivers' backend does)."""
     dem_s, valid_shape = ingest_sharded(dem, sops.mesh, fill=fill)
-    padded = tuple(dem_s.shape) != tuple(valid_shape)
-    return dem_s, valid_shape, {"valid_shape": valid_shape} if padded else {}
+    if tuple(dem_s.shape) != tuple(valid_shape):
+        sops = _Padded(sops, valid_shape)
+    return sops, dem_s, valid_shape
 
 
 def _write_sharded(dem, arrays, names, units, outdir, valid_shape, reassign_nans, band_rows):
-    """Write each sharded (H, W) array to its output in row bands, through
-    writers that are all aborted if anything fails; the written paths."""
-    with _writers(dem, names, outdir, units) as opened:
-        for arr, (_, writer) in zip(arrays, opened):
-            _fetch_banded(arr, valid_shape, _Sink(writer, dem, reassign_nans), band_rows)
-    return [path for path, _ in opened]
+    """Each sharded (H, W) array streamed to its output in row bands, the
+    ragged pad cropped (no host array of the whole grid), through
+    :func:`_stream_to`; the written paths."""
+    vh, vw = valid_shape
+
+    def run(sinks):
+        for arr, sink in zip(arrays, sinks):
+            for r0 in range(0, vh, band_rows):
+                sink(r0, arr[r0 : min(r0 + band_rows, vh), :vw])
+
+    return _stream_to(dem, names, units, outdir, reassign_nans, run)
 
 
 @_streams
@@ -398,39 +370,21 @@ def compute_tpi_std_sharded(dem, scales, sops, kinds=("tpi", "std"), smth_factor
     and/or STD: each process reads only its blocks from disk, every sigma
     group runs as one fused :meth:`ShardedOps.disk_descriptors` call, and
     the outputs stream back in row bands."""
-    check_dem(dem)
     logger.info(f"***Sharded-streaming {'+'.join(kinds)} for scales {scales} meters***")
-    scales = _as_list(scales)
-    smth_factors = _as_list(smth_factors, len(scales))
-    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
-    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
-    namers = {"tpi": _tpi_name, "std": _std_name}
+    plan = _scales(dem, scales, smth_factors)
+    ingest = functools.cache(lambda: _ingest(dem, sops, 0.0))
 
-    written, pending = {}, []
-    for idx in range(len(scales)):
-        paths = [_skip(namers[k](scales[idx], smth_factors[idx]), outdir, skip_existing)
-                 for k in kinds]
-        if all(paths):
-            written.update({(k, idx): p for k, p in zip(kinds, paths)})
-        else:
-            pending.append(idx)
-    if pending:
-        dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
-        groups = {}
-        for idx in pending:
-            groups.setdefault(sigmas[idx], []).append(idx)
-        for sigma, idxs in groups.items():
-            with timer(f"{'+'.join(kinds)} sharded-streamed x{len(idxs)} scales"):
-                batch = sops.disk_descriptors(dem_s, [int(scales_pxl[i]) for i in idxs], sigma,
+    def group(sigma, idxs, names):
+        mesh_ops, dem_s, valid_shape = ingest()
+        with timer(f"{'+'.join(kinds)} sharded-streamed x{len(idxs)} scales"):
+            batch = mesh_ops.disk_descriptors(dem_s, [plan.sizes[i] for i in idxs], sigma,
                                               compute_tpi="tpi" in kinds,
-                                              compute_std="std" in kinds, **vs)
-                keys = [(k, j, i) for k in kinds for j, i in enumerate(idxs)]
-                paths = _write_sharded(
-                    dem, [batch[k][j] for k, j, _ in keys],
-                    [namers[k](scales[i], smth_factors[i]) for k, _, i in keys],
-                    ["m"] * len(keys), outdir, valid_shape, reassign_nans, band_rows)
-            written.update({(k, i): p for (k, _, i), p in zip(keys, paths)})
-    return [written[(k, i)] for k in kinds for i in range(len(scales))]
+                                              compute_std="std" in kinds)
+            return _write_sharded(dem, [batch[k][j] for k in kinds for j in range(len(idxs))],
+                                  names, ["m"] * len(names), outdir, valid_shape,
+                                  reassign_nans, band_rows)
+
+    return _stream_disk_groups(plan, kinds, outdir, skip_existing, group)
 
 
 @_streams
@@ -438,23 +392,16 @@ def compute_dem_sharded(dem, scales, sops, outdir=".", reassign_nans: bool = Tru
                         skip_existing: bool = False, band_rows: int = 2048):
     """Windowed-ingest sharded smoothed-DEM driver (see
     :func:`compute_tpi_std_sharded`)."""
-    check_dem(dem)
-    scales = _as_list(scales)
-    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
-    sigmas = scales_pxl / CFG.scale_std
-    written, dem_s = [], None
-    for idx, sigma in enumerate(sigmas):
-        name = _dem_name(scales[idx])
-        if path := _skip(name, outdir, skip_existing):
-            written.append(path)
-            continue
-        if dem_s is None:
-            dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
-        with timer(f"dem scale {scales[idx]}m sharded-streamed"):
-            out = sops.gaussian(dem_s, float(sigma), **vs)
-            written += _write_sharded(dem, [out], [name], ["m"], outdir, valid_shape,
-                                      reassign_nans, band_rows)
-    return written
+    plan = _scales(dem, scales)
+    ingest = functools.cache(lambda: _ingest(dem, sops, 0.0))
+
+    def run(i, names, units):
+        mesh_ops, dem_s, valid_shape = ingest()
+        with timer(f"dem scale {plan.meters[i]}m sharded-streamed"):
+            return _write_sharded(dem, [mesh_ops.gaussian(dem_s, plan.sigmas[i])], names, units,
+                                  outdir, valid_shape, reassign_nans, band_rows)
+
+    return _per_scale(map(_dem_outputs, plan.meters), outdir, skip_existing, run)
 
 
 @_streams
@@ -465,27 +412,20 @@ def compute_gradient_sharded(dem, scales, sops, sig_ratios=1, outdir=".",
     compute_gradient, topo.py:534-594): the four outputs of a scale come
     from one :meth:`ShardedOps.gradient` call and stream back in row
     bands."""
-    check_dem(dem)
     logger.info(f"***Sharded-streaming gradients for scales {scales} meters***")
-    scales = _as_list(scales)
-    sig_ratios = _as_list(sig_ratios, len(scales))
-    scales_pxl, res_meters = geo.scale_to_pixel(scales, dem)
-    sigmas = scales_pxl / CFG.scale_std
-    written, dem_s = [], None
-    for idx, sigma in enumerate(sigmas):
-        names = _gradient_names(scales[idx], sig_ratios[idx])
-        paths = [_existing(n, outdir) for n in names]
-        if skip_existing and all(paths):
-            logger.info(f"skipping existing {paths}")
-            written.extend(paths)
-            continue
-        if dem_s is None:
-            dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
-        with timer(f"gradient scale {scales[idx]}m sharded-streamed"):
-            arrays = sops.gradient(dem_s, float(sigma), res_meters, sig_ratios[idx], **vs)
-            written += _write_sharded(dem, arrays, names, ["1", "1", "degree", "degree"], outdir,
-                                      valid_shape, reassign_nans, band_rows)
-    return written
+    plan = _scales(dem, scales)
+    sig_ratios = _as_list(sig_ratios, len(plan.meters))
+    ingest = functools.cache(lambda: _ingest(dem, sops, 0.0))
+
+    def run(i, names, units):
+        mesh_ops, dem_s, valid_shape = ingest()
+        with timer(f"gradient scale {plan.meters[i]}m sharded-streamed"):
+            arrays = mesh_ops.gradient(dem_s, plan.sigmas[i], plan.res, sig_ratios[i])
+            return _write_sharded(dem, arrays, names, units, outdir, valid_shape,
+                                  reassign_nans, band_rows)
+
+    outputs = [_gradient_outputs(m, r) for m, r in zip(plan.meters, sig_ratios)]
+    return _per_scale(outputs, outdir, skip_existing, run)
 
 
 @_streams
@@ -493,33 +433,23 @@ def compute_valley_ridge_sharded(dem, scales, sops, mode: str, flat_list=(0, 0.1
                                  smth_factors=None, outdir=".", reassign_nans: bool = True,
                                  skip_existing: bool = False, band_rows: int = 2048):
     """Windowed-ingest sharded valley/ridge driver (reference
-    compute_valley_ridge, topo.py:317-386). Scales whose rotated bank fits
-    ``CFG.valley_bank_max_bytes`` run :meth:`ShardedOps.valley_ridge`,
-    larger ones :meth:`ShardedOps.valley_ridge_streamed`."""
-    check_dem(dem)
+    compute_valley_ridge, topo.py:317-386); :meth:`ShardedOps.valley_ridge`
+    streams the scales whose rotated bank exceeds
+    ``CFG.valley_bank_max_bytes``."""
     logger.info(f"***Sharded-streaming {mode} index for scales {scales} meters***")
-    scales = _as_list(scales)
-    smth_factors = _as_list(smth_factors, len(scales))
-    scales_pxl, _ = geo.scale_to_pixel(scales, dem)
-    sigmas = geo.get_sigmas(smth_factors, scales_pxl)
-    written, dem_s = [], None
-    for idx, scale_pxl in enumerate(scales_pxl):
-        names = _valley_ridge_names(scales[idx], mode, smth_factors[idx])
-        paths = [_existing(n, outdir) for n in names]
-        if skip_existing and all(paths):
-            logger.info(f"skipping existing {paths}")
-            written.extend(paths)
-            continue
-        if dem_s is None:
-            dem_s, valid_shape, vs = _ingest(dem, sops, 0.0)
-        size = int(scale_pxl)
-        fits = bank_nbytes(size, len(flat_list)) <= CFG.valley_bank_max_bytes
-        with timer(f"{mode} scale {scales[idx]}m sharded-streamed"):
-            op = sops.valley_ridge if fits else sops.valley_ridge_streamed
-            arrays = op(dem_s, size, mode, list(flat_list), sigmas[idx], **vs)
-            written += _write_sharded(dem, arrays, names, ["1", "1"], outdir, valid_shape,
-                                      reassign_nans, band_rows)
-    return written
+    plan = _scales(dem, scales, smth_factors)
+    ingest = functools.cache(lambda: _ingest(dem, sops, 0.0))
+
+    def run(i, names, units):
+        mesh_ops, dem_s, valid_shape = ingest()
+        with timer(f"{mode} scale {plan.meters[i]}m sharded-streamed"):
+            arrays = mesh_ops.valley_ridge(dem_s, plan.sizes[i], mode, list(flat_list),
+                                           plan.sigmas[i])
+            return _write_sharded(dem, arrays, names, units, outdir, valid_shape,
+                                  reassign_nans, band_rows)
+
+    outputs = [_valley_ridge_outputs(m, mode, f) for m, f in zip(plan.meters, plan.factors)]
+    return _per_scale(outputs, outdir, skip_existing, run)
 
 
 @_streams
@@ -535,22 +465,18 @@ def compute_sx_sharded(dem, azimuths, radius: float, sops, height: float = 10.0,
     check_dem(dem)
     azimuths = _as_list(azimuths)
     names = [_sx_name(radius, a) for a in azimuths]
-    if skip_existing and all(_existing(n, outdir) for n in names):
-        return [_existing(n, outdir) for n in names]
+    if paths := _on_disk(names, outdir, skip_existing):
+        return paths
     logger.info(f"***Sharded-streaming Sx for azimuths {azimuths}, radius {radius}***")
-    _, res_meters = geo.scale_to_pixel(radius, dem)
-    dx = float(res_meters["x"].mean())
-    dy = float(res_meters["y"].mean())
-    dem_s, valid_shape, vs = _ingest(dem, sops, np.nan)
+    one = len(azimuths) == 1
+    rays = _sx_rays(dem, azimuths[0] if one else azimuths, radius, azimuth_arc, azimuth_steps,
+                    radius_min)
+    mesh_ops, dem_s, valid_shape = _ingest(dem, sops, np.nan)
     with timer(f"sx sharded-streamed {len(azimuths)} az r {radius}m"):
-        if len(azimuths) == 1:
-            offsets, distances, border = sx_offsets(
-                azimuths[0], radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
-            stack = [sops.sx(dem_s, offsets, distances, border, height, **vs)]
+        if one:
+            stack = [mesh_ops.sx(dem_s, *rays, height)]
         else:
-            offsets, distances, border = sx_sweep_offsets(
-                azimuths, radius, dx, dy, azimuth_arc, azimuth_steps, radius_min)
-            out = sops.sx_sweep(dem_s, offsets, distances, border, height, **vs)
+            out = mesh_ops.sx_sweep(dem_s, *rays, height)
             stack = [out[a] for a in range(len(azimuths))]
         return _write_sharded(dem, stack, names, ["degree"] * len(names), outdir, valid_shape,
                               reassign_nans, band_rows)

@@ -150,9 +150,10 @@ def scale_to_pixel(scales, dem: Raster):
     """Convert distances in meters to the closest odd number of pixels.
 
     Reference semantics (helpers.py:68-105): geographic grids are reprojected
-    to UTM (full meshgrid) to obtain per-pixel metric resolutions via
-    ``np.gradient``; the mean absolute resolution over both axes scales the
-    requested meters; result rounds to the nearest odd pixel count.
+    to UTM (from the 1-D coordinate vectors, bit for bit the reference's
+    meshgrid) to obtain per-pixel metric resolutions via ``np.gradient``;
+    the mean absolute resolution over both axes scales the requested
+    meters; result rounds to the nearest odd pixel count.
 
     Returns
     -------

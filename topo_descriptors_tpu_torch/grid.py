@@ -16,9 +16,22 @@ the grid rides along host-side.
 from __future__ import annotations
 
 import dataclasses
+from time import perf_counter
 from typing import Dict, Optional
 
 import numpy as np
+
+# What :meth:`RasterGrid.resolution_meters` did: its calls by CRS kind
+# (geographic grids are reprojected to UTM, projected ones are not) and
+# their host seconds.
+RESOLUTION_COUNTS = {"calls.geographic": 0, "calls.projected": 0, "host_s": 0.0}
+
+# Pixels in a band of a geographic grid's reprojection. A band's float64
+# temporaries (256 KiB each) stay in cache and are reused by malloc, where a
+# whole grid's (~10 MB each at 900 x 1440) are mapped and faulted in afresh
+# in every call; bands four times as large are trimmed back to the system
+# now and then, and cost as much again in those calls.
+_BAND_PIXELS = 1 << 15
 
 
 class GridError(ValueError):
@@ -62,28 +75,36 @@ class RasterGrid:
         """Per-pixel metric resolution in x and y.
 
         Reference semantics (helpers.py:88-105): if the CRS is geographic,
-        reproject a full coordinate meshgrid to UTM to obtain meters, then
-        per-pixel resolutions via ``np.gradient`` (x along the last axis,
-        y along the first). Projected grids use the 1-D coordinate vectors
-        directly.
+        reproject the coordinates to UTM to obtain meters, then per-pixel
+        resolutions via ``np.gradient`` (x along the last axis, y along the
+        first). Projected grids use the 1-D coordinate vectors directly.
+
+        The reference reprojects a full meshgrid; here ``y`` goes in as a
+        column and ``x`` as a row (:func:`_utm_float32`, a band of rows at
+        a time), and ``geo.utm_from_latlon`` broadcasts them: its
+        transcendentals and every latitude-only factor run once per row or
+        column, and only the polynomial in the longitude term per pixel.
+        The same operations on the same values per pixel, so the planes are
+        bit for bit the meshgrid's.
 
         Returns a dict with keys ``'x'`` and ``'y'``; arrays are 2-D for
         geographic grids and 1-D for projected ones, exactly as the
-        reference returns them (helpers.py:105).
+        reference returns them (helpers.py:105). Every call adds to
+        :data:`RESOLUTION_COUNTS`.
         """
-        from topo_descriptors_tpu_torch.geo import utm_from_latlon
         from topo_descriptors_tpu_torch.utils.timing import span
 
         with span("resolution"):
+            t0 = perf_counter()
             x_coords, y_coords = self.x, self.y
             if self.is_geographic:
-                x_mesh, y_mesh = np.meshgrid(x_coords, y_coords)
-                x_m, y_m = utm_from_latlon(y_mesh, x_mesh)
-                x_coords = x_m.astype(np.float32)
-                y_coords = y_m.astype(np.float32)
+                x_coords, y_coords = _utm_float32(self.y, self.x)
             n_dims = x_coords.ndim
             x_res = np.gradient(x_coords, axis=n_dims - 1)
             y_res = np.gradient(y_coords, axis=0)
+            kind = "calls.geographic" if self.is_geographic else "calls.projected"
+            RESOLUTION_COUNTS[kind] += 1
+            RESOLUTION_COUNTS["host_s"] += perf_counter() - t0
             return {"x": x_res, "y": y_res}
 
     def mean_resolution_meters(self) -> float:
@@ -128,6 +149,26 @@ class RasterGrid:
                 idx[dim] = slice(int(where[0]), int(where[-1]) + 1)
         new = RasterGrid(y=self.y[idx["y"]], x=self.x[idx["x"]], crs=self.crs)
         return new, (idx["y"], idx["x"])
+
+
+def _utm_float32(lat: np.ndarray, lon: np.ndarray):
+    """UTM easting and northing (float32) of the grid whose rows lie at
+    ``lat`` and columns at ``lon``, in bands of rows of about
+    ``_BAND_PIXELS``; one zone for the whole grid, from its first point, as
+    the reference's single call chooses it."""
+    from topo_descriptors_tpu_torch.geo import latlon_to_zone_number, utm_from_latlon
+
+    lat, lon = np.asarray(lat, np.float64), np.asarray(lon, np.float64)
+    zone = latlon_to_zone_number(lat, lon)
+    east = np.empty((lat.size, lon.size), np.float32)
+    north = np.empty_like(east)
+    rows = max(1, _BAND_PIXELS // lon.size)
+    for r in range(0, lat.size, rows):
+        band = slice(r, r + rows)
+        east[band], north[band] = utm_from_latlon(
+            lat[band, None], lon[None, :], force_zone_number=zone
+        )
+    return east, north
 
 
 @dataclasses.dataclass

@@ -76,7 +76,7 @@ SPANS = (
     "upload",  # pipeline: dtype cast, host staging, host-to-device copy
     "d2h",  # pipeline: device-to-host copy into a host array
     "nan_pass",  # pipeline: full-plane host copy and NaN scatter
-    "resolution",  # grid: UTM reprojection of a geographic mesh, np.gradient
+    "resolution",  # grid: UTM reprojection of a geographic grid, np.gradient
     "prep.kernel",  # kernels.disk: the disk mask
     "prep.runs",  # ops.conv: a {0,1} kernel's run decomposition
     "prep.count_plane",  # ops.conv: the boundary count plane's factors and upload

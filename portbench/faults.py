@@ -3,10 +3,13 @@ decides ``correct`` catches them. One for each fault a one-chip cell can
 have (it has no exchange between chips to leave out):
 
 * ``state_unchanged``: the TPI and fused disk ops hand back their input
-  field unchanged;
+  field unchanged, and the valley engine hands it back as its index, with
+  every direction 0;
 * ``half_left_out``: the disk sums skip every other kernel row and double
   what is left: half of each neighbourhood left out, its mean taken over
   the rest (on the card the halved disk still runs through the kernels);
+  the valley engine leaves out the later half of the flat fractions and
+  takes its maximum over the rest;
 * ``answer_altered``: every plane that comes back to the host has one
   pixel off by one unit (1 m, 1 degree), where the driver produces it.
 
@@ -37,8 +40,16 @@ def _state_unchanged(patch):
 
     patch(ops, "disk_descriptors", disk_descriptors)
 
+    def valley_ridge(dem, size, mode, flat_list=(0, 0.15, 0.3), sigma=None, device="cuda", **k):
+        field = as_field(dem, device)
+        return [field, torch.zeros_like(field)]
+
+    patch(ops, "valley_ridge", valley_ridge)
+
 
 def _half_left_out(patch):
+    from topo_descriptors_tpu_torch import ops
+
     for name in ("tpi", "std", "multiscale"):
         module = importlib.import_module(f"topo_descriptors_tpu_torch.ops.{name}")
         for fn in ("conv2d_same", "conv2d_same_multi"):
@@ -51,6 +62,13 @@ def _half_left_out(patch):
                     return 2 * _original(x, kernel, *a, **k)
 
                 patch(module, fn, halved)
+
+    original = ops.valley_ridge
+
+    def valley_ridge(dem, size, mode, flat_list=(0, 0.15, 0.3), *a, **k):
+        return original(dem, size, mode, list(flat_list)[:(len(flat_list) + 1) // 2], *a, **k)
+
+    patch(ops, "valley_ridge", valley_ridge)
 
 
 def _answer_altered(patch):

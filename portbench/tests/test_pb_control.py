@@ -15,7 +15,7 @@ import torch
 
 from portbench import control, faults
 from portbench import run as runner
-from portbench.tests.conftest import CELLS
+from portbench.tests.conftest import CELLS, VALLEY_CELL
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -32,6 +32,22 @@ def test_the_control_fails(tiny, monkeypatch, cell):
 def test_a_broken_timed_path_is_not_correct(tiny, cell, fault):
     with faults.planted(fault):
         result = runner.run(cell, 2**31 + 11, 0.2, False, "cpu", log=io.StringIO())
+    assert not result["correct"]
+    assert result["failed"] > 0
+
+
+def test_the_valley_control_fails(tiny_valley, monkeypatch):
+    monkeypatch.setattr(control, "load", runner.load)
+    numbers = control.readings(VALLEY_CELL, 2**31 + 3, "cpu")
+    limits = runner.load("workloads", VALLEY_CELL)["limits"]
+    assert set(limits) <= set(numbers)
+    assert any(v > limits[n] for n, v in numbers.items() if n in limits), numbers
+
+
+@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+def test_a_broken_valley_engine_is_not_correct(tiny_valley, fault):
+    with faults.planted(fault):
+        result = runner.run(VALLEY_CELL, 2**31 + 11, 0.2, False, "cpu", log=io.StringIO())
     assert not result["correct"]
     assert result["failed"] > 0
 

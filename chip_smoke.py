@@ -2502,7 +2502,8 @@ def calibrate(dem_ds, dem, smi_line):
     table = build_rotation_table(prefilter2d_o2(upload(
         valley_kernels(n20, VALLEY_FLATS).astype(np.float32), dem.device)))
     qparams = vr.streamed_schedule(n20)[1]
-    _, ystart, xstart, _, _ = _footprints(n20, qparams[len(qparams) // 2], (k20, k20), dem.device)
+    mid = len(qparams) // 2
+    _, ystart, xstart, _, _ = _footprints(n20, qparams[mid:mid + 1], (k20, k20), dem.device)
     idx = ((ystart + 1) * (n20 + 2) + (xstart + 1)).reshape(-1)
     ms = median_ms(lambda: table[idx])
     gather = idx.numel() / ms / 1e6

@@ -215,15 +215,16 @@ def test_rotation_matches_jax_and_scipy(size):
     np.testing.assert_allclose(table.numpy(), np.asarray(jrot.build_rotation_table(jfilt)),
                                rtol=0, atol=1e-6)
     for angle in (0.0, 13.0, 45.0, 90.0, 137.0, 179.0):
-        params = trot.rotation_params(size, angle, ky_max, kx_max)
+        params = trot.rotation_params(size, angle, ky_max, kx_max)  # the JAX package's row
+        rows = trot.rotation_params64(size, [angle], ky_max, kx_max)
         host = rotate_kernels(base, angle)
         _, ky, kx = host.shape
         lo_y = (ky_max - 1) // 2 - (ky - 1) // 2
         lo_x = (kx_max - 1) // 2 - (kx - 1) // 2
         canvas = np.zeros((3, ky_max, kx_max), np.float32)
         canvas[:, lo_y : lo_y + ky, lo_x : lo_x + kx] = host
-        gathered = trot.rotate_std_canvas(filt, params, (ky_max, kx_max)).numpy()
-        tabled = trot.rotate_std_canvas_table(table, size, params, (ky_max, kx_max)).numpy()
+        gathered = trot.rotate_std_canvas(filt, rows, (ky_max, kx_max))[0].numpy()
+        tabled = trot.rotate_std_canvas_table(table, size, rows, (ky_max, kx_max))[0].numpy()
         jax_canvas = np.asarray(jrot.rotate_std_canvas(jfilt, jnp.asarray(params), (ky_max, kx_max)))
         for out in (gathered, tabled):
             np.testing.assert_allclose(out, canvas, rtol=0, atol=1e-4)

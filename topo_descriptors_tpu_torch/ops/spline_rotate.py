@@ -25,9 +25,10 @@ scipy parity rules (as in the JAX module):
   :func:`~topo_descriptors_tpu_torch.ops.valley_ridge.prepare_valley_bank`
   uses.
 
-Per-angle parameters are host numpy rows: float32 (:func:`rotation_params`)
-for the streamed route's quadrant angles, float64 (:func:`rotation_params64`,
-scipy's own coordinates) for the bank route's 180 angles rotated at once.
+Per-angle parameters are host float64 rows (:func:`rotation_params64`,
+scipy's own coordinates), for the bank route's 180 angles rotated at once
+and for the streamed route's quadrant angles alike. :func:`rotation_params`
+keeps the JAX package's float32 row, which the rotation no longer reads.
 """
 
 from __future__ import annotations
@@ -156,21 +157,19 @@ def rotation_params64(size: int, angles, ky_max: int, kx_max: int) -> np.ndarray
 def _footprints(n: int, params: np.ndarray, canvas_shape, device):
     """(inside, ystart, xstart, wy, wx) over the canvas: the support mask,
     the clamped footprint starts in [-1, n-2] and the three quadratic
-    B-spline weights per axis. ``params`` is one float32 row of
-    :func:`rotation_params` (coordinates in float32, (KY, KX) each, weights
-    (3, KY, KX)) or float64 rows of :func:`rotation_params64` (coordinates
-    in float64, (A, KY, KX) each, weights (3, A, KY, KX)); the spline
-    fractions are float32 either way."""
+    B-spline weights per axis. ``params`` is a float64 (A, 8) block of
+    :func:`rotation_params64` rows: coordinates in float64, (A, KY, KX)
+    each, weights (3, A, KY, KX), the spline fractions cast to float32
+    once formed. float32 coordinates put support pixels of odd sizes from
+    153 px up on the other side of scipy's ``0 <= coord <= n-1`` test."""
+    if params.dtype != np.float64 or params.ndim != 2:
+        raise ValueError(f"expected float64 (A, 8) rows of rotation_params64, got "
+                         f"{params.dtype} {params.shape}")
     ky_max, kx_max = canvas_shape
-    if params.dtype == np.float64:
-        cols = upload(params, device)[:, :, None, None].unbind(1)
-        c, s, off_y, off_x, lo_y, lo_x, ky, kx = cols
-        oi = torch.arange(ky_max, dtype=torch.float64, device=device)[:, None] - lo_y
-        oj = torch.arange(kx_max, dtype=torch.float64, device=device)[None, :] - lo_x
-    else:
-        c, s, off_y, off_x, lo_y, lo_x, ky, kx = (float(v) for v in params)
-        oi = torch.arange(ky_max, dtype=torch.float32, device=device)[:, None].expand(ky_max, kx_max) - lo_y
-        oj = torch.arange(kx_max, dtype=torch.float32, device=device)[None, :].expand(ky_max, kx_max) - lo_x
+    cols = upload(params, device)[:, :, None, None].unbind(1)
+    c, s, off_y, off_x, lo_y, lo_x, ky, kx = cols
+    oi = torch.arange(ky_max, dtype=torch.float64, device=device)[:, None] - lo_y
+    oj = torch.arange(kx_max, dtype=torch.float64, device=device)[None, :] - lo_x
     ycoord = c * oi + s * oj + off_y
     xcoord = -s * oi + c * oj + off_x
 
@@ -204,12 +203,12 @@ def _restandardize(val: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
 def rotate_std_canvas(
     filtered: torch.Tensor, params: np.ndarray, canvas_shape: Tuple[int, int]
 ) -> torch.Tensor:
-    """Rotate a prefiltered (F, n, n) stack by one angle (``params``, one
-    row of :func:`rotation_params`) into the common anchored canvas,
-    masked-re-standardized. Pixels outside the rotated support, and the
-    canvas beyond the angle's true extent, are exactly 0."""
+    """Rotate a prefiltered (F, n, n) stack by A angles (``params``, float64
+    rows of :func:`rotation_params64`) into the common anchored canvas,
+    masked-re-standardized, as an (A, F, KY, KX) stack. Pixels outside the
+    rotated support, and the canvas beyond the angle's true extent, are
+    exactly 0."""
     n_flats, n, _ = filtered.shape
-    ky_max, kx_max = canvas_shape
     inside, ystart, xstart, wy, wx = _footprints(n, params, canvas_shape, filtered.device)
     flat = filtered.reshape(n_flats, n * n)
     val = None
@@ -217,8 +216,7 @@ def rotate_std_canvas(
         yi = _mirror_idx(ystart + a, n)
         for b in range(3):
             xi = _mirror_idx(xstart + b, n)
-            g = flat[:, (yi * n + xi).reshape(-1)].reshape(n_flats, ky_max, kx_max)
-            term = (wy[a] * wx[b])[None] * g
+            term = (wy[a] * wx[b]).unsqueeze(-3) * flat[:, yi * n + xi].movedim(0, -3)
             val = term if val is None else val + term
     return _restandardize(val, inside)
 
@@ -244,8 +242,7 @@ def rotate_std_canvas_table(
 ) -> torch.Tensor:
     """:func:`rotate_std_canvas` on the packed gather table: the same
     footprint indices, weights and re-standardization; the taps are summed
-    in another order. With float64 rows of :func:`rotation_params64` it
-    rotates A angles at once into an (A, F, KY, KX) stack."""
+    in another order; it too returns an (A, F, KY, KX) stack."""
     m = n + 2
     n_flats = table.shape[1] // 9
     inside, ystart, xstart, wy, wx = _footprints(n, params, canvas_shape, table.device)

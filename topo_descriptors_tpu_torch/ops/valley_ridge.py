@@ -33,7 +33,6 @@ from topo_descriptors_tpu_torch.ops.spline_rotate import (
     prefilter2d_o2,
     quadrant_schedule,
     rotate_std_canvas_table,
-    rotation_params,
     rotation_params64,
 )
 from topo_descriptors_tpu_torch.utils.timing import span
@@ -41,11 +40,14 @@ from topo_descriptors_tpu_torch.utils.timing import span
 METHODS = ("auto", "dftmm", "direct", "fft", "stream")
 
 # What the routes did: the single-device op's calls by route ("calls.bank":
-# a precomputed bank, "calls.streamed"), the device banks and canvas stacks
-# made (on a cache miss, or in every call that caches none), and the host
-# seconds of the bank builds (issuing the device rotations and flat fold,
-# or staging a bank given; no device sync).
-VALLEY_COUNTS = {"calls.bank": 0, "calls.streamed": 0, "builds.bank": 0, "builds.canvas": 0,
+# a precomputed bank, "calls.streamed"), the streamed calls by convolution
+# route ("conv.mm", "conv.fft"), the device banks and canvas stacks made (on
+# a cache miss, or in every call that caches none), the quadrant-angle
+# canvases rotated (into a cached stack or inline), and the host seconds of
+# the bank builds (issuing the device rotations and flat fold, or staging a
+# bank given; no device sync).
+VALLEY_COUNTS = {"calls.bank": 0, "calls.streamed": 0, "conv.mm": 0, "conv.fft": 0,
+                 "builds.bank": 0, "builds.canvas": 0, "rotations.canvas": 0,
                  "bank_build_s": 0.0}
 
 
@@ -145,12 +147,23 @@ def _given_bank(bank, device) -> torch.Tensor:
 
 
 def _standardized(dem: torch.Tensor, sigma, stats) -> torch.Tensor:
-    if sigma:
-        dem = gaussian_filter(dem, sigma)
-    if stats is None:
-        # the population std (ddof=0), as jnp.std
-        return (dem - dem.mean()) / dem.std(correction=0)
-    return (dem - stats[0]) / stats[1]  # out-of-core: global, precomputed
+    """The optionally pre-smoothed field, standardized, as float32.
+
+    Computed in float64: at the 60-100 km scales' sigmas (287-479 px) the
+    smoothed Basodino field spreads by only ~14-58 m about ~1800 m, so
+    float32's rounding of the elevations is ~1e-5 of the spread, which
+    moved the 100 km norms by ~5e-5 of their largest value, as far as a
+    TF32 computation moves them."""
+    with span("valley.field"):
+        field = dem.double()
+        if sigma:
+            field = gaussian_filter(field, sigma)
+        if stats is None:
+            # the population std (ddof=0), as jnp.std
+            field = (field - field.mean()) / field.std(correction=0)
+        else:
+            field = (field - stats[0]) / stats[1]  # out-of-core: global, precomputed
+        return field.float()
 
 
 def _evict_to(cache: dict, n: int) -> None:
@@ -242,8 +255,11 @@ _CANVAS_DEV_CACHE: dict = {}
 
 def _rotate_folded(table, n, params, kmax) -> torch.Tensor:
     """One quadrant angle's rotated, masked-standardized, flat-folded
-    (F, kmax, kmax) canvas."""
-    return _flat_axis_combine(rotate_std_canvas_table(table, n, params, (kmax, kmax)), 0)
+    (F, kmax, kmax) canvas; ``params`` is its float64 row of
+    :func:`~.spline_rotate.rotation_params64`."""
+    VALLEY_COUNTS["rotations.canvas"] += 1
+    canvas = rotate_std_canvas_table(table, n, params[None], (kmax, kmax))[0]
+    return _flat_axis_combine(canvas, 0)
 
 
 def _fft_conv_fn(dem: torch.Tensor, kmax: int) -> Callable:
@@ -351,6 +367,7 @@ def valley_ridge_streamed(
         conv_fn = _fft_conv_fn(dem, kmax)
     else:
         raise ValueError(f"unknown conv_method {conv_method!r}: expected auto, mm or fft")
+    VALLEY_COUNTS[f"conv.{conv}"] += 1
 
     canvas_of = quadrant_canvases(size, mode, flat_list, n_angles, q_batch, qparams, kmax,
                                   dem.device)
@@ -361,14 +378,15 @@ def valley_ridge_streamed(
 
 def streamed_schedule(size: int, n_angles: int = 180, q_batch: int = 4):
     """``(kmax, qparams, slot_angle, slot_valid, q_batch)`` of the streamed
-    route: the rotated extent's square canvas side, one rotation-parameter
-    row per quadrant angle, each angle's four slots, and the schedule
-    padded with all-invalid slots so that every step holds ``q_batch``
-    angles."""
+    route: the rotated extent's square canvas side, one float64
+    rotation-parameter row per quadrant angle (scipy's own coordinates,
+    :func:`~.spline_rotate.rotation_params64`), each angle's four slots,
+    and the schedule padded with all-invalid slots so that every step holds
+    ``q_batch`` angles."""
     ky_max, kx_max = rotated_extent(size, np.arange(n_angles))
     kmax = max(ky_max, kx_max)
     q_angles, slot_angle, slot_valid = quadrant_schedule(n_angles)
-    qparams = np.stack([rotation_params(size, float(q), kmax, kmax) for q in q_angles])
+    qparams = rotation_params64(size, q_angles.astype(np.float64), kmax, kmax)
     q_batch = max(1, min(int(q_batch), len(q_angles)))
     if pad := (-len(q_angles)) % q_batch:
         qparams = np.concatenate([qparams, np.repeat(qparams[:1], pad, 0)])

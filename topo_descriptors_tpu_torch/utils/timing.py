@@ -83,6 +83,7 @@ SPANS = (
     "prep.table",  # device.TableCache: lookup, and on a miss build and upload
     "prep.rays",  # kernels.sx_geometry: Sx ray offsets and distances
     "smooth",  # ops.conv: Gaussian taps and the separable passes' launches
+    "valley.field",  # ops.valley_ridge: the field's float64 pre-smooth and standardisation
     "valley.bank",  # ops.valley_ridge: a bank's device rotations and flat fold
     "valley.canvas",  # ops.valley_ridge: the streamed route's canvas rotations
     "valley.scan",  # ops.valley_ridge: the angle-chunk or quadrant loop's launches
